@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``transmil_deepgraft_tpu_torch``) on one
+NVIDIA GPU: the quickest proof that the port still builds and serves.
+
+    python3 chip_smoke.py
+
+1. builds the CUDA kernels from ``transmil_deepgraft_tpu_torch/csrc`` with nvcc;
+2. holds each kernel against its plain PyTorch version on one full-width
+   TransLayer (D 512, 8 heads, 256 landmarks) at n = 65,792 (the 40,960-tile
+   request's layer length) with a front pad and a non-zero LayerNorm bias,
+   and times both with CUDA events;
+3. serves four feature bags (300, 3,000, 12,000 and 40,960 tiles of 2048-d
+   features) through a ``ServingBundle`` + ``MicroBatcher`` of a TransMIL head
+   with seeded random weights, checks that each kernel ran twice per request
+   and that the logits match the same model's plain path on the card, then one
+   ``predict_logits_with_attention``;
+4. checks the port against the frozen torch-parity fixture
+   ``tests/fixtures/parity_transmil_2048.npz`` on the card.
+
+It prints the card's name and power limit, one JSON line of per-kernel
+numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero; without CUDA it exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+TOL = 1e-3
+REQUEST_TILES = (300, 3000, 12000, 40960)
+ATTENTION_TILES = 3000
+LAYER_TOKENS = 256 * 256 + 1  # the 40,960-tile request: bucket 65,536 -> 256^2 grid + cls
+SMOKE_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+KERNEL_SOURCE = "transmil_deepgraft_tpu_torch/csrc/translayer.cu"
+REPLACES = {
+    "translayer_k1": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:52",
+    "translayer_k2": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:112",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs, each between two
+    CUDA events, after ``warmup`` runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_costs(n: int, n_pad: int, dim: int = 512, landmarks: int = 256) -> dict:
+    """(float operations, least bytes) of each kernel on one (1, n, dim) input:
+    every input read once, every output written once, float32."""
+    act, w, lm, vec = n * dim * 4, dim * dim * 4, landmarks * dim * 4, dim * 4
+    return {
+        # LN -> [K|V] = LN(x) W_kv^T (2*dim outputs) -> q_lm K^T and P V over n+n_pad keys
+        "translayer_k1": (2 * n * dim * 2 * dim + 2 * 2 * landmarks * (n + n_pad) * dim,
+                          act + 2 * vec + 2 * w + lm + lm + act),
+        # LN -> Q -> Q k_lm^T and P B -> W_out over n rows
+        "translayer_k2": (2 * n * dim * dim * 2 + 2 * 2 * landmarks * n * dim,
+                          2 * act + 3 * vec + 2 * w + 2 * lm + act),
+    }
+
+
+def random_transmil_params(rng, in_features: int, n_classes: int, dim: int = 512) -> dict:
+    """Flax-layout TransMIL params (nested numpy dicts) from ``rng``, fan-in
+    scaled, with non-zero LayerNorm biases."""
+    import numpy as np
+
+    def dense(i, o, bias=True):
+        p = {"kernel": (rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32)}
+        if bias:
+            p["bias"] = (0.02 * rng.standard_normal(o)).astype(np.float32)
+        return p
+
+    def norm(c):
+        return {"scale": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+
+    def layer():
+        return {"norm": norm(dim), "attn": {
+            "to_qkv": dense(dim, 3 * dim, bias=False), "to_out": dense(dim, dim),
+            "res_conv": (rng.standard_normal((33, 8)) / np.sqrt(33)).astype(np.float32)}}
+
+    pos = {}
+    for name, k in (("proj", 7), ("proj1", 5), ("proj2", 3)):
+        pos[name] = (rng.standard_normal((k, k, 1, dim)) / k).astype(np.float32)
+        pos[f"{name}_bias"] = (0.02 * rng.standard_normal(dim)).astype(np.float32)
+    assert in_features == 2048, "the smoke run serves the 2048-d fc1 variant"
+    return {
+        "fc1_0": dense(in_features, in_features // 2), "fc1_norm0": norm(in_features // 2),
+        "fc1_1": dense(in_features // 2, dim),
+        "cls_token": rng.standard_normal((1, 1, dim)).astype(np.float32),
+        "layer1": layer(), "layer2": layer(), "pos_layer": pos, "norm": norm(dim),
+        "fc": dense(dim, n_classes),
+    }
+
+
+def phase_build() -> None:
+    from transmil_deepgraft_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    log(f"[build] nvcc built {sorted(reports) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build] {name}: {line.strip()}")
+
+
+def phase_kernels(rng, results: dict, dev) -> None:
+    """Each kernel against its plain version on one full-width TransLayer."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d
+
+    dim, heads, dh, m = 512, 8, 64, 256
+    n = LAYER_TOKENS
+    n_pad = tk.landmark_pad(n, m)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    x = t(rng.standard_normal((1, n, dim)))
+    ln_w = t(1 + 0.1 * rng.standard_normal(dim))
+    ln_b = t(0.5 * rng.standard_normal(dim))  # non-zero: pad rows must be zeros after LN
+    w_qkv = t(rng.standard_normal((3 * dim, dim)) / np.sqrt(dim))
+    w_out = t(rng.standard_normal((dim, dim)) / np.sqrt(dim))
+    b_out = t(0.1 * rng.standard_normal(dim))
+    res_w = t(rng.standard_normal((heads, 1, 33, 1)) / np.sqrt(33))
+    log(f"[kernels] one TransLayer at n={n} (+{n_pad} front pad = {n + n_pad}), D={dim}")
+
+    with torch.inference_mode():
+        q_lm, k_lm, attn2_inv = tk.landmark_glue(
+            x, n_pad, ln_w, ln_b, w_qkv, heads=heads, dim_head=dh, num_landmarks=m,
+            pinv_iterations=6)
+        w_kv, w_q = w_qkv[dim:], w_qkv[:dim]
+        k1_args = (x, n_pad, ln_w, ln_b, w_kv, q_lm)
+        got_a, got_v = tk.translayer_k1(*k1_args)
+        sync(dev)  # a fault in the kernel surfaces here, not in a later op
+        want_a, want_v = tk.k1_reference(*k1_args)
+        err1 = max((got_a - want_a).abs().max().item(), (got_v - want_v).abs().max().item())
+
+        bmat = (attn2_inv @ want_a).contiguous()
+        res = depthwise_conv1d(want_v, tk.value_residual_kernel(res_w, dh)).contiguous()
+        k2_args = (x, res, ln_w, ln_b, w_q, k_lm, bmat, w_out, b_out, dh ** -0.5)
+        got_y = tk.translayer_k2(*k2_args)
+        sync(dev)
+        want_y = tk.k2_reference(*k2_args)
+        err2 = (got_y - want_y).abs().max().item()
+
+        timing = {
+            "translayer_k1": (cuda_ms(lambda: tk.translayer_k1(*k1_args)),
+                              cuda_ms(lambda: tk.k1_reference(*k1_args))),
+            "translayer_k2": (cuda_ms(lambda: tk.translayer_k2(*k2_args)),
+                              cuda_ms(lambda: tk.k2_reference(*k2_args))),
+        }
+    costs = kernel_costs(n, n_pad)
+    for name, err in (("translayer_k1", err1), ("translayer_k2", err2)):
+        flops, nbytes = costs[name]
+        t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        ms, plain_ms = timing[name]
+        results[name] = {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        }
+        log(f"[kernels] {name}: max|err| {err:.3e} (tol {TOL}), kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
+            f"({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+        if not err <= TOL:
+            raise AssertionError(f"{name} disagrees with its plain version: {err} > {TOL}")
+
+
+def phase_serving(rng, results: dict, workdir: Path, dev) -> None:
+    """Feature bags through ServingBundle + MicroBatcher at full width."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.serving import (
+        MicroBatcher, ServingBundle, export_serving_bundle)
+
+    params = random_transmil_params(rng, 2048, 2)
+    path = workdir / "transmil_head.tdx"
+    export_serving_bundle(params, path, model_name="TransMIL", in_features=2048,
+                          n_classes=2, buckets=SMOKE_BUCKETS)
+    bundle = ServingBundle.load(path, device=dev)
+    batcher = MicroBatcher(bundle)
+    bags = [rng.standard_normal((n, 2048)).astype(np.float32) for n in REQUEST_TILES]
+    try:
+        batcher.predict_logits(bags[0])  # warm-up, outside the counted run
+        tk.reset_launch_counts()
+        served = []
+        for n, bag in zip(REQUEST_TILES, bags):
+            before = dict(tk.LAUNCHES)
+            t0 = time.perf_counter()
+            logits = batcher.predict_logits(bag)
+            ms = (time.perf_counter() - t0) * 1e3
+            rose = {k: tk.LAUNCHES[k] - before[k] for k in before}
+            log(f"[serving] {n} tiles: {ms:.2f} ms, logits {logits.ravel().tolist()}, "
+                f"launches {rose}")
+            if rose != {"translayer_k1": 2, "translayer_k2": 2}:
+                raise AssertionError(f"expected 2 launches of each kernel per request, got {rose}")
+            if logits.shape != (1, 2) or not np.isfinite(logits).all():
+                raise AssertionError(f"bad logits {logits}")
+            served.append(logits)
+        launches = dict(tk.LAUNCHES)
+    finally:
+        batcher.close()
+    for name, count in launches.items():
+        results[name]["launches"] = count
+    log(f"[serving] launches over {len(REQUEST_TILES)} requests: {launches}")
+
+    bundle.model.fused_inference = False  # the plain path, same weights, same card
+    for n, bag, logits in zip(REQUEST_TILES, bags, served):
+        plain = bundle.predict_logits(bag)
+        err = float(np.abs(plain - logits).max())
+        log(f"[serving] {n} tiles: kernel vs plain path max|dlogit| {err:.3e} (tol {TOL})")
+        if not err <= TOL:
+            raise AssertionError(f"served logits disagree with the plain path: {err}")
+    bundle.model.fused_inference = True
+
+    t0 = time.perf_counter()
+    logits, scores = bundle.predict_logits_with_attention(bags[1][:ATTENTION_TILES])
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"[serving] attention request, {ATTENTION_TILES} tiles: {ms:.2f} ms, "
+        f"scores {scores.shape}, sum {float(scores.sum()):.4f}")
+    if scores.shape != (1, ATTENTION_TILES) or not np.isfinite(scores).all():
+        raise AssertionError(f"bad attention scores {scores.shape}")
+    if not np.isfinite(logits).all():
+        raise AssertionError("bad attention-request logits")
+
+
+def phase_fixture(dev) -> None:
+    """The frozen torch-parity fixture (2048-d TransMIL, 237 tiles) on the card."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.utils.jax_params import state_dict_from_jax, unflatten
+
+    with np.load(ROOT / "tests" / "fixtures" / "parity_transmil_2048.npz") as z:
+        params = unflatten({k[6:]: z[k] for k in z.files if k.startswith("param:")})
+        bag, want = z["bag"], z["out:logits"]
+    model = create_model("TransMIL", want.shape[-1], 2048, device=dev)
+    model.load_state_dict(state_dict_from_jax(params, 2048))
+    model.eval()
+    with torch.inference_mode():
+        got = model(torch.from_numpy(bag).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"[fixture] parity_transmil_2048: max|dlogit| {err:.3e} vs the recorded torch "
+        f"reference (tol {TOL})")
+    if not err <= TOL:
+        raise AssertionError(f"fixture logits disagree: {err}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "transmil_deepgraft_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout that holds transmil_deepgraft_tpu_torch/",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    rng = np.random.default_rng(0)
+    results: dict = {}
+    phase_build()
+    dev = torch.device("cuda")
+    phase_kernels(rng, results, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_serving(rng, results, Path(tmp), dev)
+    phase_fixture(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[env] total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    log(json.dumps({"kernels": list(results.values())}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``transmil_deepgraft_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference: every module here mirrors a
+module there by name, and the tests hold each one to its JAX counterpart on
+the same inputs and weights. This package imports ``torch`` and ``numpy`` only
+(never ``jax``, ``flax`` or ``transmil_deepgraft_tpu``).
+
+The two TPU kernels of the fused TransLayer (``_k1``/``_k2``) are CUDA C++ in
+``csrc/translayer.cu``, compiled with ``nvcc`` at first use into
+``build/torch_kernels/`` and called through ``ctypes``.
+
+Entry points take ``device=None``, which means ``"cuda"``; without a card they
+raise unless ``device="cpu"`` is passed.
+"""
+
+__version__ = "0.1.0"

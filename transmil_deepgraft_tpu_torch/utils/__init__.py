@@ -1,0 +1,1 @@
+"""Helpers of the port (counterparts of ``transmil_deepgraft_tpu.utils``)."""
