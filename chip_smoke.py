@@ -15,7 +15,16 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    and that the logits match the same model's plain path on the card, then one
    ``predict_logits_with_attention``;
 4. checks the port against the frozen torch-parity fixture
-   ``tests/fixtures/parity_transmil_2048.npz`` on the card.
+   ``tests/fixtures/parity_transmil_2048.npz`` on the card;
+5. makes a full-width ResNet50 from seeded random weights, builds its int8
+   model (``build_qresnet50``, 8 calibration tiles of 224x224) on the card,
+   holds the stage and entry kernels against their plain versions on the
+   seven segments of one chunk (stage 1, then entry + interior of stages 2-4),
+   code for code, and times each at 128 tiles;
+6. serves 300 uint8 tiles (3 chunks of 128, the last ragged) through
+   ``SlideInferencePipeline`` -> int8 ResNet50 -> TransMIL, checks the launch
+   counts of all four kernels, the probabilities against the same pipeline on
+   the all-plain route, and the int8 features against the float ResNet50.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -33,6 +42,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+H100_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor-core rate (data sheet)
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 TOL = 1e-3
 REQUEST_TILES = (300, 3000, 12000, 40960)
@@ -40,10 +50,19 @@ ATTENTION_TILES = 3000
 LAYER_TOKENS = 256 * 256 + 1  # the 40,960-tile request: bucket 65,536 -> 256^2 grid + cls
 SMOKE_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 KERNEL_SOURCE = "transmil_deepgraft_tpu_torch/csrc/translayer.cu"
+QSTAGE_SOURCE = "transmil_deepgraft_tpu_torch/csrc/qstage.cu"
 REPLACES = {
     "translayer_k1": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:52",
     "translayer_k2": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:112",
+    "qstage_run": "transmil_deepgraft_tpu/ops/pallas/qstage_kernel.py:54",
+    "qentry_run": "transmil_deepgraft_tpu/ops/pallas/qstage_kernel.py:254",
 }
+TILE = 224  # the tile size of the slide pipeline
+CHUNK = 128  # tiles per backbone call (bench.py's chunk)
+CALIB_TILES = 8
+COMPARE_TILES = 32  # tiles on which each int8 segment is held to its plain version
+SLIDE_TILES = 300  # 3 chunks, the last one ragged
+FP32_CHECK_TILES = 64
 
 
 def log(msg: str) -> None:
@@ -122,6 +141,97 @@ def random_transmil_params(rng, in_features: int, n_classes: int, dim: int = 512
         "layer1": layer(), "layer2": layer(), "pos_layer": pos, "norm": norm(dim),
         "fc": dense(dim, n_classes),
     }
+
+
+def random_resnet50_variables(rng) -> dict:
+    """Flax-layout ResNet50 {'params', 'batch_stats'} (nested numpy dicts) from
+    ``rng``: lecun-normal convs, BatchNorm with non-trivial scale, bias, mean
+    and variance, so that the fold matters."""
+    import numpy as np
+
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import EXPANSION, PLANES, _block_plan
+
+    def conv(k, cin, cout):
+        w = rng.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin)
+        return {"kernel": w.astype(np.float32)}
+
+    def bn(c):
+        return ({"scale": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                 "bias": (0.05 * rng.standard_normal(c)).astype(np.float32)},
+                {"mean": (0.05 * rng.standard_normal(c)).astype(np.float32),
+                 "var": (1 + 0.1 * rng.random(c)).astype(np.float32)})
+
+    params, stats = {"conv1": conv(7, 3, 64)}, {}
+    params["bn1"], stats["bn1"] = bn(64)
+    cin = 64
+    for name, _, has_ds in _block_plan(4):
+        stage = int(name[5]) - 1
+        mid, cout = PLANES[stage], PLANES[stage] * EXPANSION
+        p, st = {}, {}
+        for i, (k, a, b) in enumerate(((1, cin, mid), (3, mid, mid), (1, mid, cout)), 1):
+            p[f"conv{i}"] = conv(k, a, b)
+            p[f"bn{i}"], st[f"bn{i}"] = bn(b)
+        if has_ds:
+            p["downsample_conv"] = conv(1, cin, cout)
+            p["downsample_bn"], st["downsample_bn"] = bn(cout)
+        params[name], stats[name] = p, st
+        cin = cout
+    return {"params": params, "batch_stats": stats}
+
+
+def normalize_tiles(tiles_u8):
+    """uint8 tiles -> ImageNet-normalized float32, as the pipeline does."""
+    from transmil_deepgraft_tpu_torch.inference import IMAGENET_MEAN, IMAGENET_STD
+
+    return (tiles_u8.astype("float32") / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def segments(q) -> list:
+    """The seven segments of the int8 forward after the stem, in order:
+    (name, blocks, is_entry) for s1, then e/i of stages 2-4."""
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import _STAGE_SLICES
+
+    lo, hi = _STAGE_SLICES[0]
+    out = [("s1", q.blocks[lo:hi], False)]
+    for stage, (lo, hi) in enumerate(_STAGE_SLICES[1:], 2):
+        out += [(f"e{stage}", q.blocks[lo:lo + 1], True), (f"i{stage}", q.blocks[lo + 1:hi], False)]
+    return out
+
+
+def segment_runs(q) -> list:
+    """(name, kernel name, run on the kernel, run on the plain version) of
+    each segment, in order."""
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+
+    runs = []
+    for name, blocks, entry in segments(q):
+        if entry:
+            runs.append((name, "qentry_run", lambda x, b=blocks[0]: qk.fused_entry_block(x, b),
+                         lambda x, b=blocks[0]: qk.entry_reference(x, b)))
+        else:
+            runs.append((name, "qstage_run", lambda x, b=blocks: qk.fused_bottleneck_stage(x, b),
+                         lambda x, b=blocks: qk.stage_reference(x, b)))
+    return runs
+
+
+def segment_costs(blocks, entry: bool, x_shape) -> tuple[int, int]:
+    """(int8 operations = 2 * MACs, least bytes) of one segment on an
+    (n, h, w, c) int8 input: the input and every weight and fma constant read
+    once, the output written once."""
+    n, h, w, _ = x_shape
+    macs, nbytes = 0, n * h * w * x_shape[3]
+    stride = 2 if entry else 1
+    for blk in blocks:
+        cin, mid = blk.w1.shape[-2:]
+        cout = blk.w3.shape[-1]
+        full, out = n * h * w, n * (h // stride) * (w // stride)
+        macs += full * cin * mid + out * 9 * mid * mid + out * mid * cout
+        nbytes += blk.w1.numel() + blk.w2.numel() + blk.w3.numel() + 4 * (4 * mid + 2 * cout)
+        if blk.wd is not None:
+            macs += out * cin * cout
+            nbytes += blk.wd.numel() + 4 * cout
+        h, w = h // stride, w // stride
+    return 2 * macs, nbytes + n * h * w * cout
 
 
 def phase_build() -> None:
@@ -287,6 +397,151 @@ def phase_fixture(dev) -> None:
         raise AssertionError(f"fixture logits disagree: {err}")
 
 
+def phase_qstage(rng, results: dict, dev) -> tuple:
+    """B7/B8 on the seven segments of one chunk of a full-width ResNet50 at
+    224x224: int8 codes against the plain versions, then times at 128 tiles."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import _stem_q, build_qresnet50
+
+    variables = random_resnet50_variables(rng)
+    tiles_u8 = rng.integers(0, 256, (SLIDE_TILES, TILE, TILE, 3), dtype=np.uint8)
+    calib = normalize_tiles(tiles_u8[:CALIB_TILES])
+    t0 = time.perf_counter()
+    q = build_qresnet50(variables, calib, device=dev)
+    sync(dev)
+    log(f"[qstage] build_qresnet50 on {CALIB_TILES} tiles of {TILE}x{TILE}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = segment_runs(q)
+    worst = {"qstage_run": 0, "qentry_run": 0}  # max |code difference| by kernel
+    with torch.inference_mode():
+        x = _stem_q(q, torch.from_numpy(normalize_tiles(tiles_u8[:COMPARE_TILES])).to(dev))
+        for name, kernel, run, plain in runs:
+            got = run(x)
+            sync(dev)
+            want = plain(x)
+            bad = int((got != want).sum())
+            worst[kernel] = max(worst[kernel], int((got.int() - want.int()).abs().max()))
+            log(f"[qstage] {name} ({kernel}) on {COMPARE_TILES} tiles {tuple(x.shape)} -> "
+                f"{tuple(want.shape)}: {bad} differing int8 codes of {want.numel()}")
+            if bad:
+                raise AssertionError(f"{kernel} disagrees with its plain version on {name}")
+            x = want
+
+        x = _stem_q(q, torch.from_numpy(normalize_tiles(tiles_u8[:CHUNK])).to(dev))
+        totals = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("qstage_run", "qentry_run")}
+        for (name, kernel, run, plain), (_, blocks, entry) in zip(runs, segments(q)):
+            ms = cuda_ms(lambda: run(x))
+            plain_ms = cuda_ms(lambda: plain(x), reps=3, warmup=1)
+            ops, nbytes = segment_costs(blocks, entry, tuple(x.shape))
+            t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+            log(f"[qstage] {name} ({kernel}) at {CHUNK} tiles: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms ({ops:.3e} int8 OP, "
+                f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TOP/s")
+            for i, v in enumerate((ms, plain_ms, max(t_ops, t_bytes), t_ops, t_bytes)):
+                totals[kernel][i] += v
+            x = run(x)
+    for kernel, (ms, plain_ms, bound, t_ops, t_bytes) in totals.items():
+        results[kernel] = {
+            "name": kernel, "route": "cuda", "source": QSTAGE_SOURCE,
+            "replaces": REPLACES[kernel], "launches": None, "max_abs_err": float(worst[kernel]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        }
+        log(f"[qstage] {kernel}, all its launches of one {CHUNK}-tile chunk: {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms")
+    return variables, tiles_u8, calib
+
+
+def phase_pipeline(rng, results: dict, dev, variables, tiles_u8, calib) -> None:
+    """uint8 tiles through SlideInferencePipeline -> int8 ResNet50 -> TransMIL."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet50
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import prepare_qresnet50_fused
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.utils.jax_params import (
+        resnet_state_dict_from_jax, state_dict_from_jax)
+
+    head_params = random_transmil_params(rng, 2048, 2)
+
+    def head(fused: bool):
+        model = create_model("TransMIL", 2, 2048, device=dev, fused_inference=fused)
+        model.load_state_dict(state_dict_from_jax(head_params, 2048))
+        return model
+
+    t0 = time.perf_counter()
+    pipe = SlideInferencePipeline(variables, head(True), calib_tiles=calib, chunk=CHUNK,
+                                  device=dev)
+    log(f"[pipeline] built (int8 calibration on the card) in {time.perf_counter() - t0:.2f} s")
+    pipe.predict_slide(tiles_u8[:CHUNK])  # warm-up, outside the counted run
+
+    tk.reset_launch_counts()
+    qk.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = pipe.predict_slide(tiles_u8)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {**qk.LAUNCHES, **tk.LAUNCHES}
+    chunks = -(-SLIDE_TILES // CHUNK)
+    log(f"[pipeline] predict_slide, {SLIDE_TILES} uint8 tiles ({chunks} chunks): {ms:.2f} ms, "
+        f"probs {probs.tolist()}, launches {launches}")
+    expected = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks,
+                "translayer_k1": 2, "translayer_k2": 2}
+    if launches != expected:
+        raise AssertionError(f"expected launches {expected}, got {launches}")
+    if probs.shape != (2,) or not np.isfinite(probs).all() or abs(probs.sum() - 1) > 1e-5:
+        raise AssertionError(f"bad probabilities {probs}")
+    for name in ("qstage_run", "qentry_run"):
+        results[name]["launches"] = launches[name]
+
+    batch = tiles_u8[:CHUNK]
+    chunk_ms = cuda_ms(lambda: pipe._embed_chunk(batch), reps=5, warmup=1)
+    log(f"[pipeline] one {CHUNK}-tile chunk's embed (uint8 host->device copy, normalize, "
+        f"stem, 7 segments, pool): {chunk_ms:.3f} ms")
+
+    t0 = time.perf_counter()
+    attn_probs, scores = pipe.predict_slide_with_attention(tiles_u8)
+    log(f"[pipeline] predict_slide_with_attention: {(time.perf_counter() - t0) * 1e3:.2f} ms, "
+        f"scores {scores.shape}, probs {attn_probs.tolist()}")
+    if scores.shape != (SLIDE_TILES,) or not np.isfinite(scores).all():
+        raise AssertionError(f"bad attention scores {scores.shape}")
+    if not np.abs(attn_probs - probs).max() <= TOL:
+        raise AssertionError(f"attention probabilities {attn_probs} differ from {probs}")
+
+    # the same constants on the all-plain route: plain segments, plain head
+    plain = SlideInferencePipeline(variables, head(False), calib_tiles=calib, chunk=CHUNK,
+                                   device=dev, fused_backbone=True, fused_t_cfg=(0,) * 7)
+    plain._q = prepare_qresnet50_fused(pipe._q)
+    feats = pipe.embed(tiles_u8)
+    plain_feats = plain.embed(tiles_u8)
+    plain_probs = plain.predict_slide(tiles_u8)
+    half_share = float(pipe._q.final_scale) / (2 * (TILE // 32) ** 2)
+    err_f = float(np.abs(feats - plain_feats).max())
+    err_p = float(np.abs(probs - plain_probs).max())
+    log(f"[pipeline] kernel vs all-plain route: max|dfeature| {err_f:.3e} (tol {half_share:.3e},"
+        f" half a code's share), max|dprob| {err_p:.3e} (tol {TOL})")
+    if not (err_f <= half_share and err_p <= TOL):
+        raise AssertionError("the pipeline disagrees with its all-plain route")
+
+    model = resnet50()
+    model.load_state_dict(resnet_state_dict_from_jax(variables))
+    model = model.to(dev).eval()
+    with torch.inference_mode():
+        x = torch.from_numpy(normalize_tiles(tiles_u8[:FP32_CHECK_TILES])).to(dev)
+        ref = model(x).cpu().numpy()
+    got = feats[:FP32_CHECK_TILES]
+    cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(got, axis=-1))
+    log(f"[pipeline] int8 vs float32 ResNet50 (TF32 off) on {FP32_CHECK_TILES} tiles: "
+        f"cosine min {cos.min():.6f}, mean {cos.mean():.6f} (bar 0.999)")
+    if not cos.min() > 0.999:
+        raise AssertionError(f"int8 features too far from float32: cosine {cos.min()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -316,6 +571,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_serving(rng, results, Path(tmp), dev)
     phase_fixture(dev)
+    t_new = time.perf_counter()
+    variables, tiles_u8, calib = phase_qstage(rng, results, dev)
+    phase_pipeline(rng, results, dev, variables, tiles_u8, calib)
+    log(f"[env] int8 embed phases {time.perf_counter() - t_new:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

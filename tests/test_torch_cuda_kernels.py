@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from transmil_deepgraft_tpu_torch.models.resnet_int8 import QBlock
+from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
 from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
 
 
@@ -48,3 +50,63 @@ def test_cuda_kernels_match_plain_versions(cuda_device, n):
                t(rng.standard_normal((dim, dim)) / np.sqrt(dim)), t(rng.standard_normal(dim)), 0.125)
     assert (tk.translayer_k2(*k2_args) - tk.k2_reference(*k2_args)).abs().max().item() <= 1e-3
     assert tk.LAUNCHES == {"translayer_k1": 1, "translayer_k2": 1}
+
+
+def _rand_qblock(rng, dev, cin, cmid, cout, has_ds):
+    """Random int8 block with fma constants that spread the codes over the
+    whole int8 range."""
+    def w(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+
+    def sc(c, k):  # |acc| ~ sqrt(K) * 73^2 for uniform codes -> ~60 code units
+        m = rng.uniform(0.5, 1.5, c) * 60 / (np.sqrt(k) * 73 * 73)
+        return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+    def z(c):
+        return torch.from_numpy(rng.uniform(-30.0, 30.0, c).astype(np.float32)).to(dev)
+
+    return QBlock(w(1, 1, cin, cmid), sc(cmid, cin), z(cmid),
+                  w(3, 3, cmid, cmid), sc(cmid, 9 * cmid), z(cmid),
+                  w(1, 1, cmid, cout), sc(cout, cmid), z(cout),
+                  w(1, 1, cin, cout) if has_ds else None,
+                  sc(cout, cin) if has_ds else None,
+                  torch.tensor(rng.uniform(0.5, 1.5), dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 56, 64, 64, 256), (2, 14, 1024, 256, 1024)],
+                         ids=["stage1", "stage3"])
+def test_qstage_kernel_matches_plain_version(cuda_device, shape):
+    """B7: a run of stride-1 bottlenecks (the first with a downsample when the
+    width changes), int8 codes equal to the plain version's."""
+    n, hw, cin, cmid, cout = shape
+    rng = np.random.default_rng(hw)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, hw, hw, cin), dtype=np.int8)).to(cuda_device)
+    blocks = [_rand_qblock(rng, cuda_device, cin, cmid, cout, cin != cout),
+              _rand_qblock(rng, cuda_device, cout, cmid, cout, False)]
+    qk.reset_launch_counts()
+    got = qk.fused_bottleneck_stage(x, blocks)
+    torch.cuda.synchronize()
+    want = qk.stage_reference(x, blocks)
+    assert torch.unique(want).numel() > 200  # the check sees the whole code range
+    assert int((got != want).sum()) == 0
+    assert qk.LAUNCHES == {"qstage_run": 1, "qentry_run": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 56, 256, 128, 512), (2, 28, 512, 256, 1024)],
+                         ids=["layer2_0", "layer3_0"])
+def test_qentry_kernel_matches_plain_version(cuda_device, shape):
+    """B8: one stride-2 stage-entry bottleneck with its downsample."""
+    n, hw, cin, cmid, cout = shape
+    rng = np.random.default_rng(hw + 1)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, hw, hw, cin), dtype=np.int8)).to(cuda_device)
+    blk = _rand_qblock(rng, cuda_device, cin, cmid, cout, True)
+    qk.reset_launch_counts()
+    got = qk.fused_entry_block(x, blk)
+    torch.cuda.synchronize()
+    want = qk.entry_reference(x, blk)
+    assert got.shape == (n, hw // 2, hw // 2, cout)
+    assert torch.unique(want).numel() > 200
+    assert int((got != want).sum()) == 0
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 1}

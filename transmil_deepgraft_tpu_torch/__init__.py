@@ -5,9 +5,11 @@ module there by name, and the tests hold each one to its JAX counterpart on
 the same inputs and weights. This package imports ``torch`` and ``numpy`` only
 (never ``jax``, ``flax`` or ``transmil_deepgraft_tpu``).
 
-The two TPU kernels of the fused TransLayer (``_k1``/``_k2``) are CUDA C++ in
-``csrc/translayer.cu``, compiled with ``nvcc`` at first use into
-``build/torch_kernels/`` and called through ``ctypes``.
+The TPU kernels on the serving path are CUDA C++: the fused TransLayer's
+``_k1``/``_k2`` in ``csrc/translayer.cu``, and the int8 ResNet50's
+``_stage_kernel``/``_entry_kernel`` in ``csrc/qstage.cu``. Each source is
+compiled with ``nvcc`` at first use into ``build/torch_kernels/`` and called
+through ``ctypes``.
 
 Entry points take ``device=None``, which means ``"cuda"``; without a card they
 raise unless ``device="cpu"`` is passed.

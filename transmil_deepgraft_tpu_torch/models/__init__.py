@@ -1,6 +1,7 @@
 """Model registry of the port (counterpart of ``models/__init__.py``).
 
-This slice ports the TransMIL head only."""
+The port has the TransMIL head (in the registry), the ResNet50 feature
+extractor and its int8 post-training-quantized form."""
 
 from __future__ import annotations
 
@@ -9,6 +10,12 @@ from typing import Any
 import torch
 
 from transmil_deepgraft_tpu_torch.device import resolve_device
+from transmil_deepgraft_tpu_torch.models.resnet import ResNet, resnet50, resnet50_baseline
+from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
+    QResNet50,
+    apply_qresnet50,
+    build_qresnet50,
+)
 from transmil_deepgraft_tpu_torch.models.transmil import TransMIL, TransMILAttention
 
 MODEL_REGISTRY = {"TransMIL": TransMIL}
@@ -26,4 +33,7 @@ def create_model(name: str, n_classes: int, in_features: int = 2048,
     return model.to(dev)
 
 
-__all__ = ["MODEL_REGISTRY", "TransMIL", "TransMILAttention", "create_model"]
+__all__ = [
+    "MODEL_REGISTRY", "QResNet50", "ResNet", "TransMIL", "TransMILAttention",
+    "apply_qresnet50", "build_qresnet50", "create_model", "resnet50", "resnet50_baseline",
+]

@@ -1,11 +1,14 @@
-"""Flax-layout TransMIL params -> the port's ``state_dict`` (the inverse of the
-JAX package's ``utils/torch_weights.convert_transmil_state_dict``).
+"""Flax-layout weights -> the port's models.
 
-The flax tree arrives as nested dicts of numpy arrays (``params["layer1"]
-["attn"]["to_qkv"]["kernel"]``), e.g. from :func:`unflatten` of an ``.npz``
-written with :func:`flatten`. Dense kernels (in, out) are transposed to torch
-(out, in); ``res_conv`` (33, heads) becomes (heads, 1, 33, 1); the PPEG
-kernels (k, k, 1, C) become (C, 1, k, k).
+TransMIL (:func:`state_dict_from_jax`, the inverse of the JAX package's
+``utils/torch_weights.convert_transmil_state_dict``): the flax tree arrives as
+nested dicts of numpy arrays (``params["layer1"]["attn"]["to_qkv"]["kernel"]``),
+e.g. from :func:`unflatten` of an ``.npz`` written with :func:`flatten`. Dense
+kernels (in, out) are transposed to torch (out, in); ``res_conv`` (33, heads)
+becomes (heads, 1, 33, 1); the PPEG kernels (k, k, 1, C) become (C, 1, k, k).
+
+ResNet (:func:`resnet_state_dict_from_jax`) and the int8 ResNet50
+(:func:`qresnet_from_jax`) likewise.
 """
 
 from __future__ import annotations
@@ -78,4 +81,48 @@ def state_dict_from_jax(params: Mapping[str, Any], in_features: int) -> dict[str
         sd[f"pos_layer.{name}.bias"] = np.asarray(pos[f"{name}_bias"])
     norm("norm", params["norm"])
     dense("_fc", params["fc"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ResNet ``{'params', 'batch_stats'}`` (numpy leaves) -> the port's
+    ``models/resnet.ResNet`` ``state_dict``: HWIO conv kernels become OIHW,
+    BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict[str, np.ndarray] = {}
+
+    def walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str) -> None:
+        for name, sub in p.items():
+            key = f"{prefix}{name}"
+            if "kernel" in sub:
+                sd[f"{key}.weight"] = np.asarray(sub["kernel"]).transpose(3, 2, 0, 1)
+            elif "scale" in sub:
+                sd[f"{key}.weight"] = np.asarray(sub["scale"])
+                sd[f"{key}.bias"] = np.asarray(sub["bias"])
+                sd[f"{key}.running_mean"] = np.asarray(s[name]["mean"])
+                sd[f"{key}.running_var"] = np.asarray(s[name]["var"])
+            else:
+                walk(sub, s[name], f"{key}.")
+
+    walk(params, stats, "")
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        out[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
+    return out
+
+
+def qresnet_from_jax(q: Any):
+    """A JAX ``QResNet50`` with numpy leaves (``jax.device_get``) -> the port's
+    ``QResNet50`` on the CPU, with the same constants bit for bit."""
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import QBlock, QResNet50
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.array(a))
+
+    return QResNet50(
+        stem_w=t(q.stem_w), stem_m=t(q.stem_m), stem_z=t(q.stem_z),
+        input_scale=t(q.input_scale),
+        blocks=tuple(QBlock(*(t(a) for a in b)) for b in q.blocks),
+        final_scale=t(q.final_scale), truncate_after=int(q.truncate_after),
+        feature_dim=int(q.feature_dim),
+    )
