@@ -24,7 +24,18 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
 6. serves 300 uint8 tiles (3 chunks of 128, the last ragged) through
    ``SlideInferencePipeline`` -> int8 ResNet50 -> TransMIL, checks the launch
    counts of all four kernels, the probabilities against the same pipeline on
-   the all-plain route, and the int8 features against the float ResNet50.
+   the all-plain route, and the int8 features against the float ResNet50;
+7. holds the Nystrom landmark kernels (B5/B6 on a packed qkv, B3/B4 on
+   (b*h, n, d) arrays) against their plain versions at the training shape
+   (n = 1,280, ragged) and at a 40,960-tile bag (n = 41,472), checks the
+   fused attention's forward and analytic backward against autograd through
+   the plain op, and times the kernels, their plain versions and the one
+   PyTorch call that computes the same function;
+8. trains TransMIL-2048 with ``use_pallas=True`` through ``MILDataModule`` ->
+   ``Trainer.fit`` (2 epochs of 32 synthetic 1,000-tile bags, lookahead_radam,
+   grad_acc 2) and ``Trainer.test``, checks the launch counts of B5/B6 and
+   K1/K2, holds 8 optimizer steps against the all-plain route, times the
+   optimizer step by part, and runs one forward + backward at 40,960 tiles.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -51,11 +62,16 @@ LAYER_TOKENS = 256 * 256 + 1  # the 40,960-tile request: bucket 65,536 -> 256^2 
 SMOKE_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 KERNEL_SOURCE = "transmil_deepgraft_tpu_torch/csrc/translayer.cu"
 QSTAGE_SOURCE = "transmil_deepgraft_tpu_torch/csrc/qstage.cu"
+NYSTROM_SOURCE = "transmil_deepgraft_tpu_torch/csrc/nystrom.cu"
 REPLACES = {
     "translayer_k1": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:52",
     "translayer_k2": "transmil_deepgraft_tpu/ops/pallas/translayer_kernel.py:112",
     "qstage_run": "transmil_deepgraft_tpu/ops/pallas/qstage_kernel.py:54",
     "qentry_run": "transmil_deepgraft_tpu/ops/pallas/qstage_kernel.py:254",
+    # B5 (pallas_call at :297; B3, the (b*h, n, d) form, at :102)
+    "nystrom_landmark_attn": "transmil_deepgraft_tpu/ops/pallas/nystrom_kernel.py:297",
+    # B6 (pallas_call at :319; B4 at :151)
+    "nystrom_query_lm": "transmil_deepgraft_tpu/ops/pallas/nystrom_kernel.py:319",
 }
 TILE = 224  # the tile size of the slide pipeline
 CHUNK = 128  # tiles per backbone call (bench.py's chunk)
@@ -63,6 +79,14 @@ CALIB_TILES = 8
 COMPARE_TILES = 32  # tiles on which each int8 segment is held to its plain version
 SLIDE_TILES = 300  # 3 chunks, the last one ragged
 FP32_CHECK_TILES = 64
+TRAIN_N = 1280  # a 1,000-tile train bag: 32^2 grid + cls, landmark-padded
+BIG_N = 41472  # a 40,960-tile bag: 203^2 grid + cls, landmark-padded
+TRAIN_BAG = 1000  # the JAX CLI's default bag_size
+TRAIN_SPLITS = {"n_train": 32, "n_val": 16, "n_test": 16}
+TRAIN_EPOCHS = 2
+GRAD_ACC = 2
+PARITY_STEPS = 8  # optimizer steps held against the all-plain route
+BIG_BAG = 40960
 
 
 def log(msg: str) -> None:
@@ -542,6 +566,237 @@ def phase_pipeline(rng, results: dict, dev, variables, tiles_u8, calib) -> None:
         raise AssertionError(f"int8 features too far from float32: cosine {cos.min()}")
 
 
+def nystrom_costs(b: int, n: int, heads: int = 8, d: int = 64, m: int = 256) -> dict:
+    """(float operations, least bytes) of each landmark kernel on one call:
+    2 * 2 * m * n * d a head (scores and the weighted sum), every input read
+    once, every output written once, float32."""
+    flops = 4 * m * n * heads * d * b
+    plane, lm = b * n * heads * d * 4, b * heads * m * d * 4
+    return {"nystrom_landmark_attn": (flops, lm + 2 * plane + lm),  # q_lm, k, v -> out
+            "nystrom_query_lm": (flops, plane + 2 * lm + plane)}  # q, k_lm, B -> out
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_nystrom(rng, results: dict, dev) -> None:
+    """B5/B6 (packed) and B3/B4 ((b*h, n, d)) against their plain versions at
+    the training shape and at a 40,960-tile bag; the fused attention and its
+    backward against autograd through the plain op; times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops.nystrom import nystrom_attention
+
+    h, d, m = 8, 64, 256
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    def check(label: str, got, want) -> float:
+        sync(dev)
+        err = (got - want).abs().max().item()
+        log(f"[nystrom] {label}: max|err| {err:.3e} (tol {TOL})")
+        if not err <= TOL:
+            raise AssertionError(f"{label} disagrees with its plain version: {err} > {TOL}")
+        return err
+
+    worst = {"nystrom_landmark_attn": 0.0, "nystrom_query_lm": 0.0}
+    timing = {}
+    with torch.inference_mode():
+        for b, n in ((2, TRAIN_N), (1, BIG_N)):
+            qkv = t(b, n, 3, h, d)
+            q_lm, k_lm, bmat = t(b, h, m, d, scale=0.125), t(b, h, m, d, scale=0.125), t(b, h, m, d)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
+            flat = [x.reshape(b * h, -1, d).contiguous() for x in (q_lm, q, k, v, k_lm, bmat)]
+            runs = {  # name: (form, kernel call, plain call, the one PyTorch call), ...
+                "nystrom_landmark_attn": (
+                    ("B5", lambda: nk.landmark_attention_packed(q_lm, qkv),
+                     lambda: nk.landmark_attention_reference(q_lm, k, v),
+                     lambda: F.scaled_dot_product_attention(q_lm, k, v, scale=1.0)),
+                    ("B3", lambda: nk.landmark_attention(flat[0], flat[2], flat[3]),
+                     lambda: nk.landmark_attention_reference(flat[0], flat[2], flat[3]),
+                     lambda: F.scaled_dot_product_attention(flat[0], flat[2], flat[3], scale=1.0))),
+                "nystrom_query_lm": (
+                    ("B6", lambda: nk.query_landmark_attention_packed(qkv, k_lm, bmat),
+                     lambda: nk.query_landmark_attention_reference(q, k_lm, bmat).transpose(1, 2),
+                     lambda: F.scaled_dot_product_attention(q, k_lm, bmat, scale=1.0)),
+                    ("B4", lambda: nk.query_landmark_attention(flat[1], flat[4], flat[5]),
+                     lambda: nk.query_landmark_attention_reference(flat[1], flat[4], flat[5]),
+                     lambda: F.scaled_dot_product_attention(flat[1], flat[4], flat[5], scale=1.0))),
+            }
+            for name, forms in runs.items():
+                for form, kernel, plain, library in forms:
+                    err = check(f"{form} ({name}) b={b} n={n}", kernel(), plain())
+                    worst[name] = max(worst[name], err)
+                    ms = cuda_ms(kernel)
+                    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                    library_ms = cuda_ms(library)
+                    bound_ms, by = bound(*nystrom_costs(b, n)[name])
+                    timing[(name, form, n)] = (ms, plain_ms, library_ms, bound_ms, by)
+                    log(f"[nystrom] {form} ({name}) b={b} n={n}: kernel {ms:.3f} ms, plain "
+                        f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+
+    # the fused attention and its analytic backward against autograd through
+    # the plain op, at the training shape
+    b, n = 2, TRAIN_N
+    qkv, g = t(b, n, 3, h, d), t(b, n, h, d)
+    x = qkv.clone().requires_grad_(True)
+    out = nk.nystrom_attention_fused_packed(x, m, 6, 1024)
+    out.backward(g)
+    xr = qkv.clone().requires_grad_(True)
+    ref = nystrom_attention(*(xr[:, :, i].transpose(1, 2) for i in range(3)),
+                            num_landmarks=m, pinv_iterations=6).out.transpose(1, 2)
+    ref.backward(g)
+    check(f"nystrom_attention_fused_packed forward b={b} n={n}", out.detach(), ref.detach())
+    check(f"nystrom_attention_fused_packed backward (dq, dk, dv) b={b} n={n}", x.grad, xr.grad)
+
+    for name, (ms, plain_ms, library_ms, bound_ms, by) in (
+            (nm, timing[(nm, form, BIG_N)]) for nm, form in
+            (("nystrom_landmark_attn", "B5"), ("nystrom_query_lm", "B6"))):
+        results[name] = {
+            "name": name, "route": "cuda", "source": NYSTROM_SOURCE, "replaces": REPLACES[name],
+            "launches": None, "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+        }
+
+
+def phase_train(results: dict, dev) -> None:
+    """TransMIL-2048 with use_pallas through MILDataModule -> Trainer.fit ->
+    Trainer.test; launch counts; kernel vs all-plain training; the step by
+    part; one forward + backward at 40,960 tiles."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.train.losses import create_loss
+    from transmil_deepgraft_tpu_torch.train.optimizers import create_optimizer
+    from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    def datamodule():
+        return MILDataModule(n_classes=2, max_bag_size=TRAIN_BAG, batch_size=1, seed=2021,
+                             synthetic={**TRAIN_SPLITS, "bag_size": TRAIN_BAG,
+                                        "feature_size": 2048, "signal": 0.8})
+
+    torch.manual_seed(0)
+    init = create_model("TransMIL", 2, 2048, device=dev).state_dict()
+
+    def trainer(use_pallas: bool, log_dir: Path, **cfg) -> Trainer:
+        model = create_model("TransMIL", 2, 2048, device=dev, use_pallas=use_pallas)
+        model.load_state_dict(init)
+        tx = create_optimizer("lookahead_radam", lr=2e-4, weight_decay=0.01,
+                              grad_accum_steps=GRAD_ACC)
+        config = TrainerConfig(epochs=TRAIN_EPOCHS, log_dir=str(log_dir), epoch_figures=False,
+                               export_topk_tiles=False, **cfg)
+        return Trainer(model, tx, datamodule(), n_classes=2, loss_fn=create_loss(), config=config)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tr = trainer(True, tmp / "fit")
+        dm = tr.dm
+        micro = TRAIN_EPOCHS * TRAIN_SPLITS["n_train"]
+        evals = TRAIN_EPOCHS * TRAIN_SPLITS["n_val"] + TRAIN_SPLITS["n_test"]
+        tk.reset_launch_counts()
+        nk.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = tr.fit()
+        summary = tr.test()
+        sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = {**nk.LAUNCHES, **tk.LAUNCHES}
+        rows = [json.loads(line) for line in (tmp / "fit" / "metrics.jsonl").read_text().splitlines()]
+        log(f"[train] fit ({TRAIN_EPOCHS} epochs x {micro // TRAIN_EPOCHS} bags of {TRAIN_BAG} "
+            f"tiles, grad_acc {GRAD_ACC}) + test: {fit_s:.2f} s, launches {launches}")
+        for r in rows:
+            log(f"[train] {json.dumps({k: v for k, v in r.items() if k != 'time'})}")
+        expected = {"nystrom_landmark_attn": 2 * micro, "nystrom_query_lm": 2 * micro,
+                    "translayer_k1": 2 * evals, "translayer_k2": 2 * evals}
+        if launches != expected:
+            raise AssertionError(f"expected launches {expected}, got {launches}")
+        losses = [r[k] for r in rows for k in ("loss", "val_loss", "test_loss") if k in r]
+        if len(rows) != TRAIN_EPOCHS + 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"bad training rows {rows}")
+        for name in ("nystrom_landmark_attn", "nystrom_query_lm"):
+            results[name]["launches"] = launches[name]
+        log(f"[train] last epoch {history['loss']:.4f} / val {history['val_loss']:.4f}, "
+            f"test AUC {summary['test_auc']:.4f}")
+
+        # the step by part, on the next epoch's bags: 8 optimizer steps after a warm-up one
+        batches = list(dm.train_batches(TRAIN_EPOCHS))
+        parts = []
+        for i in range(0, 9 * GRAD_ACC, GRAD_ACC):
+            step = [0.0, 0.0, 0.0]
+            for batch in batches[i:i + GRAD_ACC]:
+                bags, labels = tr._batch_tensors(batch)
+                for p in tr.model.parameters():
+                    p.grad = None
+                sync(dev)
+                t0 = time.perf_counter()
+                loss, _ = tr.loss(bags, labels)
+                sync(dev)
+                t1 = time.perf_counter()
+                loss.backward()
+                sync(dev)
+                t2 = time.perf_counter()
+                tr.tx.step()
+                sync(dev)
+                t3 = time.perf_counter()
+                for j, dt in enumerate((t1 - t0, t2 - t1, t3 - t2)):
+                    step[j] += dt * 1e3
+            parts.append(step)
+        parts = np.array(parts[1:])  # the first step warms up
+        med = np.median(parts, axis=0)
+        log(f"[train] one optimizer step ({GRAD_ACC} micro-steps at n={TRAIN_N}), median of "
+            f"{len(parts)}: {np.median(parts.sum(1)):.3f} ms = forward {med[0]:.3f} + backward "
+            f"{med[1]:.3f} + optimizer update {med[2]:.3f} ms")
+
+        # kernel route vs all-plain route from the same weights, dropout off
+        kern = trainer(True, tmp / "kernel", train_deterministic=True)
+        plain = trainer(False, tmp / "plain", train_deterministic=True)
+        kern.tx.init(kern.model.parameters())
+        plain.tx.init(plain.model.parameters())
+        worst_loss = 0.0
+        for batch in list(dm.train_batches(0))[:PARITY_STEPS * GRAD_ACC]:
+            lk, _ = kern.train_step(*kern._batch_tensors(batch))
+            lp, _ = plain.train_step(*plain._batch_tensors(batch))
+            worst_loss = max(worst_loss, abs(lk - lp))
+        worst_param = max((a - b).abs().max().item() for a, b in
+                          zip(kern.model.parameters(), plain.model.parameters()))
+        log(f"[train] {PARITY_STEPS} optimizer steps, kernel vs all-plain route: max|dloss| "
+            f"{worst_loss:.3e}, max|dparam| {worst_param:.3e} (tol 1e-4)")
+        if not (worst_loss <= 1e-4 and worst_param <= 1e-4):
+            raise AssertionError("kernel training disagrees with the all-plain route")
+
+    # one forward + backward at a 40,960-tile bag through the kernels
+    model = tr.model
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, BIG_BAG, 2048), dtype=np.float32)).to(dev)
+    labels = torch.ones(1, dtype=torch.long, device=dev)
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    nk.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, _ = tr.loss(x, labels)
+    loss.backward()
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    grads_ok = all(torch.isfinite(p.grad).all().item() for p in model.parameters())
+    log(f"[train] forward + backward at {BIG_BAG} tiles (n={BIG_N}): {ms:.2f} ms, peak "
+        f"{peak:.2f} GiB, loss {loss.item():.4f}, launches {dict(nk.LAUNCHES)}")
+    if nk.LAUNCHES != {"nystrom_landmark_attn": 2, "nystrom_query_lm": 2} or not grads_ok:
+        raise AssertionError("the 40,960-tile step missed the kernels or gave non-finite grads")
+
+
 def main() -> int:
     try:
         import torch
@@ -575,6 +830,10 @@ def main() -> int:
     variables, tiles_u8, calib = phase_qstage(rng, results, dev)
     phase_pipeline(rng, results, dev, variables, tiles_u8, calib)
     log(f"[env] int8 embed phases {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    phase_nystrom(rng, results, dev)
+    phase_train(results, dev)
+    log(f"[env] training phases {time.perf_counter() - t_new:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

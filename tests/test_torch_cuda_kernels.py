@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from transmil_deepgraft_tpu_torch.models.resnet_int8 import QBlock
+from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
 from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
 from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
 
@@ -110,3 +111,35 @@ def test_qentry_kernel_matches_plain_version(cuda_device, shape):
     assert torch.unique(want).numel() > 200
     assert int((got != want).sum()) == 0
     assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed", "bh"])
+def test_nystrom_kernels_match_plain_versions(cuda_device, form):
+    """B5/B6 on a packed qkv and B3/B4 on (b*h, n, d) arrays at the ragged
+    training shape: 2 bags, 8 heads of 64, 256 landmarks, n = 1,280 (not a
+    multiple of the 1,024-key split)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    b, n, h, d, m = 2, 1280, 8, 64, 256
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(cuda_device)
+
+    qkv, q_lm = t(b, n, 3, h, d), t(b, h, m, d, scale=0.125)
+    k_lm, bmat = t(b, h, m, d, scale=0.125), t(b, h, m, d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
+    nk.reset_launch_counts()
+    if form == "packed":
+        got_a = nk.landmark_attention_packed(q_lm, qkv)
+        got_q = nk.query_landmark_attention_packed(qkv, k_lm, bmat).transpose(1, 2)
+    else:
+        flat = [x.reshape(b * h, -1, d).contiguous() for x in (q_lm, q, k, v, k_lm, bmat)]
+        got_a = nk.landmark_attention(flat[0], flat[2], flat[3]).reshape(b, h, m, d)
+        got_q = nk.query_landmark_attention(flat[1], flat[4], flat[5]).reshape(b, h, n, d)
+    torch.cuda.synchronize()
+    want_a = nk.landmark_attention_reference(q_lm, k, v)
+    want_q = nk.query_landmark_attention_reference(q, k_lm, bmat)
+    assert (got_a - want_a).abs().max().item() <= 1e-3
+    assert (got_q - want_q).abs().max().item() <= 1e-3
+    assert nk.LAUNCHES == {"nystrom_landmark_attn": 1, "nystrom_query_lm": 1}

@@ -195,3 +195,56 @@ def test_microbatcher_close_fails_requests_behind_it(bundle):
     assert isinstance(results[0], np.ndarray)
     assert isinstance(results[1], RuntimeError) and isinstance(results[2], RuntimeError)
     assert batcher.queue_depth == 0
+
+
+def _jax_bundle(tmp_path, params):
+    """A TransMIL head exported by the JAX package (one bucket, CPU only)."""
+    from transmil_deepgraft_tpu.models import create_model as jax_create_model
+    from transmil_deepgraft_tpu.serving import export_serving_bundle as jax_export
+
+    model = jax_create_model("TransMIL", N_CLASSES, IN_FEATURES)
+    path = tmp_path / "jax_head.tdx"
+    meta = jax_export(model, {"params": params}, path, model_name="TransMIL",
+                      in_features=IN_FEATURES, buckets=(BUCKETS[1],), platforms=("cpu",),
+                      attention=False)
+    return path, meta
+
+
+def test_loads_a_bundle_the_jax_package_exported(params, tmp_path):
+    """A bundle written by the JAX package's export_serving_bundle
+    (variables.msgpack, no n_classes in its meta) serves from the port with
+    the JAX bundle's logits."""
+    path, meta = _jax_bundle(tmp_path, params)
+    assert "n_classes" not in meta
+    bundle = ServingBundle.load(path, device="cpu")
+    assert bundle.meta["n_classes"] == N_CLASSES
+    bag = _bag(100, seed=7)
+    want = JaxServingBundle.load(path).predict_logits(bag)
+    got = bundle.predict_logits(bag)
+    assert got.shape == want.shape == (1, N_CLASSES)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def test_flax_msgpack_reader_refuses_what_it_does_not_know():
+    """Everything flax writes for a params tree decodes to numpy; an unknown
+    ExtType, bfloat16 arrays and stray bytes raise ValueError."""
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+    tree = {"a": {"k": np.arange(6, dtype=np.float32).reshape(2, 3), "s": np.int64(-3)},
+            "b": [1, -200, 70000, 2.5, None, True, "x" * 40, b"\x00\x01"],
+            "c": np.zeros((2, 0), np.int8)}
+    got = read_flax_msgpack(serialization.msgpack_serialize(tree))
+    np.testing.assert_array_equal(got["a"]["k"], tree["a"]["k"])
+    assert got["a"]["k"].dtype == np.float32 and got["a"]["s"] == -3
+    assert got["b"] == tree["b"] and got["c"].shape == (2, 0)
+
+    unknown_ext = b"\x81\xa1a\xd4\x07\x00"  # {"a": fixext1 of type 7}
+    with pytest.raises(ValueError, match="ExtType 7"):
+        read_flax_msgpack(unknown_ext)
+    with pytest.raises(ValueError, match="bfloat16"):
+        read_flax_msgpack(serialization.msgpack_serialize({"w": jnp.ones((2,), jnp.bfloat16)}))
+    with pytest.raises(ValueError, match="trailing"):
+        read_flax_msgpack(serialization.msgpack_serialize({"w": 1}) + b"\x00")

@@ -23,13 +23,15 @@ MODEL_REGISTRY = {"TransMIL": TransMIL}
 
 def create_model(name: str, n_classes: int, in_features: int = 2048,
                  out_features: int = 512, device: str | torch.device | None = None,
-                 **kwargs: Any) -> TransMIL:
-    """Instantiate a MIL head by config name on ``device`` (None = CUDA)."""
+                 use_pallas: bool | None = None, **kwargs: Any) -> TransMIL:
+    """Instantiate a MIL head by config name on ``device`` (None = CUDA).
+    ``use_pallas=True`` routes the TransLayers' attention (training included)
+    through the fused Nystrom landmark kernels, as the JAX flag does."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; the port has: {sorted(MODEL_REGISTRY)}")
     dev = resolve_device(device)
     model = MODEL_REGISTRY[name](n_classes=n_classes, in_features=in_features,
-                                 out_features=out_features, **kwargs)
+                                 out_features=out_features, use_pallas=use_pallas, **kwargs)
     return model.to(dev)
 
 

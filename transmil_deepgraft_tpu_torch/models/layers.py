@@ -22,24 +22,49 @@ import torch.nn.functional as F
 from torch import nn
 
 from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d, depthwise_conv2d
-from transmil_deepgraft_tpu_torch.ops.nystrom import nystrom_attention, pad_to_landmark_multiple
+from transmil_deepgraft_tpu_torch.ops.nystrom import (
+    nystrom_attention,
+    nystrom_attention_row,
+    pad_to_landmark_multiple,
+)
+from transmil_deepgraft_tpu_torch.ops.nystrom_kernel import nystrom_attention_fused_packed
 from transmil_deepgraft_tpu_torch.ops.translayer_kernel import value_residual_kernel
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask comes from ``generator`` when one is set, so
+    that a trainer can give the model a random stream seeded of its own."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep / (1.0 - self.p)
 
 
 class NystromAttentionLayer(nn.Module):
     """Self-attention via the Nystrom approximation (dim 512, 8 heads of 64, 256
     landmarks, 6 pinv iterations, 33-tap depthwise value residual, out-proj
-    dropout 0.7), as the reference's ``nystrom_attention`` dependency."""
+    dropout 0.7), as the reference's ``nystrom_attention`` dependency.
+
+    ``use_pallas=True`` runs the attention through the fused landmark kernels
+    (:func:`~transmil_deepgraft_tpu_torch.ops.nystrom_kernel.nystrom_attention_fused_packed`,
+    B5/B6 on the card, analytic backward) on the packed qkv; ``None`` or
+    ``False`` runs the plain op, as in JAX."""
 
     def __init__(self, dim: int = 512, heads: int = 8, dim_head: int = 64,
                  num_landmarks: int = 256, pinv_iterations: int = 6,
-                 residual_kernel_size: int = 33, dropout: float = 0.7) -> None:
+                 residual_kernel_size: int = 33, dropout: float = 0.7,
+                 use_pallas: Optional[bool] = None) -> None:
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks, self.pinv_iterations = num_landmarks, pinv_iterations
+        self.use_pallas = use_pallas
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
         ks = residual_kernel_size
         self.res_conv = nn.Conv2d(heads, heads, (ks, 1), padding=(ks // 2, 0),
                                   groups=heads, bias=False)
@@ -55,26 +80,36 @@ class NystromAttentionLayer(nn.Module):
         np_ = x_p.shape[1]
         qkv = self.to_qkv(x_p).reshape(b, np_, 3, self.heads, self.dim_head)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        result = nystrom_attention(q, k, v, num_landmarks=self.num_landmarks,
-                                   pinv_iterations=self.pinv_iterations,
-                                   return_row_index=return_row_index)
-        out = result.out.transpose(1, 2).reshape(b, np_, inner)
+        if self.use_pallas:
+            out_bnhd = nystrom_attention_fused_packed(qkv, self.num_landmarks,
+                                                      self.pinv_iterations, 1024)
+            cls_row = None
+            if return_row_index is not None:
+                cls_row = nystrom_attention_row(q, k, num_landmarks=self.num_landmarks,
+                                                pinv_iterations=self.pinv_iterations,
+                                                row_index=return_row_index)
+        else:
+            result = nystrom_attention(q, k, v, num_landmarks=self.num_landmarks,
+                                       pinv_iterations=self.pinv_iterations,
+                                       return_row_index=return_row_index)
+            out_bnhd, cls_row = result.out.transpose(1, 2), result.cls_row
+        out = out_bnhd.reshape(b, np_, inner)
         # one depthwise conv over all value columns: torch Conv2d(h, h, (33, 1),
         # groups=h) on (b, h, n, d), run as the JAX package runs it
         kern = value_residual_kernel(self.res_conv.weight, self.dim_head)
         out = out + depthwise_conv1d(qkv[:, :, 2].reshape(b, np_, inner), kern)
         out = self.to_out(out)
-        return out[:, -n:], result.cls_row, pad
+        return out[:, -n:], cls_row, pad
 
 
 class TransLayer(nn.Module):
     """Pre-norm residual Nystrom-attention block (ref ``TransMIL.py:19-57``)."""
 
-    def __init__(self, dim: int = 512) -> None:
+    def __init__(self, dim: int = 512, use_pallas: Optional[bool] = None) -> None:
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.attn = NystromAttentionLayer(dim=dim, heads=8, dim_head=dim // 8,
-                                          num_landmarks=dim // 2)
+                                          num_landmarks=dim // 2, use_pallas=use_pallas)
 
     def forward(self, x: torch.Tensor, return_row_index: Optional[int] = None):
         out, attn_row, pad = self.attn(self.norm(x), return_row_index=return_row_index)
@@ -120,8 +155,8 @@ def make_fc1(in_features: int, out_features: int) -> nn.Sequential:
     if in_features in (1024, 768):
         drop0 = 0.2 if in_features == 1024 else 0.6
         return nn.Sequential(
-            nn.Linear(in_features, in_features), nn.GELU(), nn.Dropout(drop0),
+            nn.Linear(in_features, in_features), nn.GELU(), Dropout(drop0),
             nn.LayerNorm(in_features), nn.Linear(in_features, out_features), nn.GELU(),
-            nn.Dropout(0.6), nn.LayerNorm(out_features),
+            Dropout(0.6), nn.LayerNorm(out_features),
         )
     return nn.Sequential(nn.Linear(in_features, out_features), nn.GELU())

@@ -8,8 +8,9 @@ Architecture (ref ``code/models/TransMIL.py:78-211``):
 In eval mode without ``return_attn`` both TransLayers run through
 :func:`~transmil_deepgraft_tpu_torch.ops.translayer_kernel.fused_translayer`:
 its two CUDA kernels on a CUDA input, their plain versions on a CPU input.
-Training and ``return_attn`` run the plain layers (same parameters), as in
-the JAX package. ``return_attn=True`` also returns the layer-2 attention row
+Training and ``return_attn`` run the standard layers (same parameters), as in
+the JAX package; with ``use_pallas=True`` their attention goes through the
+fused landmark kernels (B5/B6 on the card, analytic backward). ``return_attn=True`` also returns the layer-2 attention row
 for heatmaps, computed in O(N*m); ``attn_query='ref'`` reproduces the
 reference's ``padding+1`` row index, ``'cls'`` uses the true cls row.
 """
@@ -47,7 +48,8 @@ class TransMILAttention(NamedTuple):
 
 class TransMIL(nn.Module):
     def __init__(self, n_classes: int, in_features: int = 2048, out_features: int = 512,
-                 attn_query: str = "ref", fused_inference: bool = True) -> None:
+                 attn_query: str = "ref", fused_inference: bool = True,
+                 use_pallas: Optional[bool] = None) -> None:
         super().__init__()
         self.out_features = out_features
         self.attn_query = attn_query
@@ -55,8 +57,8 @@ class TransMIL(nn.Module):
         self.pos_layer = PPEG(dim=out_features)
         self._fc1 = make_fc1(in_features, out_features)
         self.cls_token = nn.Parameter(torch.randn(1, 1, out_features))
-        self.layer1 = TransLayer(dim=out_features)
-        self.layer2 = TransLayer(dim=out_features)
+        self.layer1 = TransLayer(dim=out_features, use_pallas=use_pallas)
+        self.layer2 = TransLayer(dim=out_features, use_pallas=use_pallas)
         self.norm = nn.LayerNorm(out_features, eps=1e-5)
         self._fc = nn.Linear(out_features, n_classes)
 

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("translayer", "qstage")
+SOURCES = ("translayer", "qstage", "nystrom")
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,389 @@
+"""Fused Nystrom attention for training (port of ``ops/pallas/nystrom_kernel.py``).
+
+Two hand-written CUDA kernels (``csrc/nystrom.cu``) replace the four Pallas
+TPU kernels, each in two layouts:
+
+  nystrom_landmark_attn (B5 ``_landmark_attn_kernel_packed``, B3
+      ``_landmark_attn_kernel``): ``attn3_v = softmax(q_lm k^T) v`` with the
+      m landmarks as queries over the n keys (online softmax, split over n).
+  nystrom_query_lm (B6 ``_query_lm_kernel_packed``, B4 ``_query_lm_kernel``):
+      ``softmax(q k_lm^T) B`` with the n rows as queries over the m landmarks.
+
+The landmark means, the m x m softmax, the Newton-Schulz pinv and
+``B = pinv @ attn3_v`` stay torch ops, as the JAX package leaves them to XLA,
+in its order of scaling: the packed form scales the q landmarks after the
+mean and hands B6 ``k_lm * scale``; the (b, h, n, d) form scales q before its
+mean.
+
+:func:`nystrom_attention_fused_packed` and :func:`nystrom_attention_fused` are
+``torch.autograd.Function``s whose backward is :func:`nystrom_attention_bwd`,
+the analytic O(n*m) VJP (the JAX package writes it in XLA ops and has no
+backward kernel; here it is torch ops). They save only their inputs and
+recompute the small pieces.
+
+Each kernel wrapper launches its kernel on a CUDA tensor, uses its plain
+version (:func:`landmark_attention_reference`,
+:func:`query_landmark_attention_reference`) on a CPU tensor, and raises on
+anything else. The plain versions materialise the (b, h, m, n) scores: 340 MB
+at n = 41,472 and 8 heads, which the card holds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from transmil_deepgraft_tpu_torch.ops import _build
+from transmil_deepgraft_tpu_torch.ops.nystrom import _segment_means
+from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv
+
+# The only shape the kernels are built for: the model the repository ships.
+KERNEL_DIM_HEAD, KERNEL_LANDMARKS = 64, 256
+
+# Launches of each kernel since the last reset_launch_counts().
+LAUNCHES = {"nystrom_landmark_attn": 0, "nystrom_query_lm": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernels with their C signatures declared (once a process)."""
+    lib = _build.load("nystrom")
+    lib.nystrom_landmark_chunk_keys.argtypes = [_I, _I, _I]
+    lib.nystrom_landmark_chunk_keys.restype = _I
+    lib.nystrom_landmark_attn.argtypes = [_P, _P, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.nystrom_landmark_attn.restype = _I
+    lib.nystrom_query_rows.argtypes = [_I, _I]
+    lib.nystrom_query_rows.restype = _I
+    lib.nystrom_query_lm.argtypes = [_P, _L, _L, _L, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P]
+    lib.nystrom_query_lm.restype = _I
+    return lib
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version); False for CUDA (kernel); raises
+    for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"Nystrom kernels run on CUDA or CPU tensors, not {x.device}")
+
+
+def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
+    """A float32 tensor on ``device`` whose last axis is one contiguous
+    dim_head row, 16-byte aligned, with every stride a multiple of 4."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.shape[-1] != KERNEL_DIM_HEAD or t.stride(-1) != 1:
+        raise ValueError(f"{name} must end in a contiguous axis of {KERNEL_DIM_HEAD}, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+    if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:-1]):
+        raise ValueError(f"{name} must be 16-byte aligned with strides a multiple of 4")
+
+
+def _check_landmarks(name: str, t: torch.Tensor, batch: int, heads: int,
+                     device: torch.device) -> None:
+    _check_rows(name, t, device)
+    if tuple(t.shape) != (batch, heads, KERNEL_LANDMARKS, KERNEL_DIM_HEAD) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({batch}, {heads}, {KERNEL_LANDMARKS}, "
+                         f"{KERNEL_DIM_HEAD}) tensor, got {tuple(t.shape)}")
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.cuda_error_string(err).decode()} ({err})")
+
+
+# ------------------------------------------------------- plain versions
+
+def landmark_attention_reference(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q_lm k^T) v`` over (..., m, d), (..., n, d), (..., n, d)."""
+    return torch.softmax(q_lm @ k.transpose(-1, -2), dim=-1) @ v
+
+
+def query_landmark_attention_reference(q: torch.Tensor, k_lm: torch.Tensor,
+                                       bmat: torch.Tensor) -> torch.Tensor:
+    """``softmax(q k_lm^T) B`` over (..., n, d), (..., m, d), (..., m, d)."""
+    return torch.softmax(q @ k_lm.transpose(-1, -2), dim=-1) @ bmat
+
+
+# ------------------------------------------------------- kernel launches
+
+def _launch_landmark(q_lm, k, v, k_strides, batch, heads, n, block_n):
+    """q_lm (batch, heads, m, d); k and v read at ``k_strides`` (batch, head,
+    row) -> (batch, heads, m, d)."""
+    dev = q_lm.device
+    _check_landmarks("q_lm", q_lm, batch, heads, dev)
+    _check_rows("k", k, dev)
+    _check_rows("v", v, dev)
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    lib = _library()
+    chunk = lib.nystrom_landmark_chunk_keys(batch * heads, n, block_n)
+    nchunks = -(-n // chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    m, d = KERNEL_LANDMARKS, KERNEL_DIM_HEAD
+    out = torch.empty((batch, heads, m, d), **f32)
+    part_acc = torch.empty((batch, heads, nchunks, m, d), **f32)
+    part_ml = torch.empty((batch, heads, nchunks, m, 2), **f32)
+    with torch.cuda.device(dev):
+        err = lib.nystrom_landmark_attn(
+            q_lm.data_ptr(), k.data_ptr(), v.data_ptr(), *k_strides, out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), batch, heads, n, chunk,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(lib, "nystrom_landmark_attn", err)
+    LAUNCHES["nystrom_landmark_attn"] += 1
+    return out
+
+
+def _launch_query(q, q_strides, k_lm, bmat, out, o_strides, batch, heads, n):
+    """Rows of q read at ``q_strides``; k_lm, bmat (batch, heads, m, d); the
+    result written into ``out`` at ``o_strides``."""
+    dev = q.device
+    _check_rows("q", q, dev)
+    _check_landmarks("k_lm", k_lm, batch, heads, dev)
+    _check_landmarks("bmat", bmat, batch, heads, dev)
+    _check_rows("out", out, dev)
+    lib = _library()
+    rows = lib.nystrom_query_rows(batch * heads, n)
+    with torch.cuda.device(dev):
+        err = lib.nystrom_query_lm(
+            q.data_ptr(), *q_strides, k_lm.data_ptr(), bmat.data_ptr(), out.data_ptr(),
+            *o_strides, batch, heads, n, rows, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(lib, "nystrom_query_lm", err)
+    LAUNCHES["nystrom_query_lm"] += 1
+    return out
+
+
+# ------------------------------------------------------- (b*h, n, d) layout
+
+def landmark_attention(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       block_n: int = 1024) -> torch.Tensor:
+    """B3: ``softmax(q_lm k^T) v``; q_lm (bh, m, d), k and v (bh, n, d) ->
+    (bh, m, d) float32. ``block_n`` caps the keys of one block on the card."""
+    if _on_cpu(q_lm):
+        return landmark_attention_reference(q_lm, k, v)
+    bh, n, _ = k.shape
+    if tuple(v.shape) != tuple(k.shape) or v.stride() != k.stride():
+        raise ValueError(f"k and v must share shape and strides, got {tuple(k.shape)}, {tuple(v.shape)}")
+    return _launch_landmark(q_lm[:, None], k, v, (k.stride(0), 0, k.stride(1)),
+                            bh, 1, n, block_n)[:, 0]
+
+
+def query_landmark_attention(q: torch.Tensor, k_lm: torch.Tensor, bmat: torch.Tensor, *,
+                             block_n: int = 1024) -> torch.Tensor:
+    """B4: ``softmax(q k_lm^T) B``; q (bh, n, d), k_lm and B (bh, m, d) ->
+    (bh, n, d) float32. ``block_n`` is the TPU's row tile; the card's row
+    split is chosen from the shape."""
+    del block_n
+    if _on_cpu(q):
+        return query_landmark_attention_reference(q, k_lm, bmat)
+    bh, n, d = q.shape
+    out = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
+    _launch_query(q, (q.stride(0), 0, q.stride(1)), k_lm[:, None], bmat[:, None],
+                  out, (out.stride(0), 0, out.stride(1)), bh, 1, n)
+    return out
+
+
+# ------------------------------------------------------- packed layout
+
+def landmark_attention_packed(q_lm: torch.Tensor, qkv: torch.Tensor, *,
+                              block_n: int = 1024) -> torch.Tensor:
+    """B5: per head ``softmax(q_lm k^T) v`` reading the k and v planes of the
+    packed qkv in place; q_lm (b, h, m, d), qkv (b, n, 3, h, d) -> (b, h, m, d)."""
+    k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)  # views, (b, h, n, d)
+    if _on_cpu(qkv):
+        return landmark_attention_reference(q_lm, k, v)
+    b, n, _, h, _ = qkv.shape
+    return _launch_landmark(q_lm, k, v, (k.stride(0), k.stride(1), k.stride(2)), b, h, n, block_n)
+
+
+def query_landmark_attention_packed(qkv: torch.Tensor, k_lm: torch.Tensor,
+                                    bmat: torch.Tensor) -> torch.Tensor:
+    """B6: per head ``softmax(q k_lm^T) B`` reading the q plane of the packed
+    qkv in place; k_lm, B (b, h, m, d) -> (b, n, h, d)."""
+    q = qkv[:, :, 0]  # (b, n, h, d) view
+    if _on_cpu(qkv):
+        out = query_landmark_attention_reference(q.transpose(1, 2), k_lm, bmat)
+        return out.transpose(1, 2)
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=torch.float32, device=qkv.device)
+    return _launch_query(q, (q.stride(0), q.stride(2), q.stride(1)), k_lm, bmat,
+                         out, (out.stride(0), out.stride(2), out.stride(1)), b, h, n)
+
+
+# ------------------------------------------------------- the attention ops
+
+def _packed_forward(qkv, num_landmarks, pinv_iterations, block_n, scale):
+    b, n, three, h, d = qkv.shape
+    if three != 3:
+        raise ValueError(f"qkv must be (b, n, 3, h, d), got {tuple(qkv.shape)}")
+    m = num_landmarks
+    if n % m:
+        raise ValueError(f"sequence length {n} not a multiple of landmarks {m}")
+    scale = d ** -0.5 if scale is None else scale
+    seg = n // m
+    # landmarks (b, h, m, d): the q landmarks scaled after the mean
+    q_lm = (qkv[:, :, 0].float().reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2) * scale).contiguous()
+    k_lm = qkv[:, :, 1].float().reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2)
+    attn2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)
+    attn2_inv = newton_schulz_pinv(attn2, pinv_iterations)
+    attn3_v = landmark_attention_packed(q_lm, qkv, block_n=block_n)
+    bmat = (attn2_inv @ attn3_v).contiguous()
+    return query_landmark_attention_packed(qkv, (k_lm * scale).contiguous(), bmat)
+
+
+class _FusedPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_landmarks, pinv_iterations, block_n, scale):
+        ctx.save_for_backward(qkv)
+        ctx.config = (num_landmarks, pinv_iterations, scale)
+        return _packed_forward(qkv, num_landmarks, pinv_iterations, block_n, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        num_landmarks, pinv_iterations, scale = ctx.config
+        d = qkv.shape[-1]
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ratio = 1.0 if scale is None else scale / d ** -0.5
+        if scale is not None:  # the forward scaled q by `scale`, not d**-0.5: fold the ratio
+            q = q * ratio
+        dq, dk, dv = nystrom_attention_bwd(q, k, v, g.transpose(1, 2), num_landmarks=num_landmarks,
+                                           pinv_iterations=pinv_iterations)
+        if scale is not None:
+            dq = dq * ratio
+        dqkv = torch.stack([dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)], dim=2)
+        return dqkv.to(qkv.dtype), None, None, None, None
+
+
+def nystrom_attention_fused_packed(qkv: torch.Tensor, num_landmarks: int = 256,
+                                   pinv_iterations: int = 6, block_n: int = 1024,
+                                   scale: float | None = None) -> torch.Tensor:
+    """Fused Nystrom attention over the packed (b, n, 3, h, d) qkv projection
+    (B5 + B6 on the card); q is scaled by ``scale`` (default d**-0.5).
+    Returns (b, n, h, d) float32; its gradient is the analytic backward."""
+    return _FusedPacked.apply(qkv, num_landmarks, pinv_iterations, block_n, scale)
+
+
+def _fused_forward(q, k, v, num_landmarks, pinv_iterations, block_n):
+    b, h, n, d = q.shape
+    m = num_landmarks
+    qs = q * d ** -0.5  # q scaled before its mean
+    q_lm = _segment_means(qs.float(), m)
+    k_lm = _segment_means(k.float(), m)
+    attn2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)
+    attn2_inv = newton_schulz_pinv(attn2, pinv_iterations)
+    attn3_v = landmark_attention(q_lm.reshape(b * h, m, d).contiguous(), k.reshape(b * h, n, d),
+                                 v.reshape(b * h, n, d), block_n=block_n)
+    bmat = (attn2_inv.reshape(b * h, m, m) @ attn3_v).contiguous()
+    out = query_landmark_attention(qs.reshape(b * h, n, d), k_lm.reshape(b * h, m, d).contiguous(),
+                                   bmat, block_n=block_n)
+    return out.reshape(b, h, n, d)
+
+
+class _Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_landmarks, pinv_iterations, block_n):
+        ctx.save_for_backward(q, k, v)
+        ctx.config = (num_landmarks, pinv_iterations)
+        return _fused_forward(q, k, v, num_landmarks, pinv_iterations, block_n)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        num_landmarks, pinv_iterations = ctx.config
+        dq, dk, dv = nystrom_attention_bwd(q, k, v, g, num_landmarks=num_landmarks,
+                                           pinv_iterations=pinv_iterations)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def nystrom_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_landmarks: int = 256, pinv_iterations: int = 6,
+                            block_n: int = 1024) -> torch.Tensor:
+    """Fused-kernel Nystrom attention (B3 + B4 on the card) over contiguous
+    (b, h, n, d) q, k, v; the same semantics as
+    ``ops.nystrom.nystrom_attention(...).out``."""
+    return _Fused.apply(q.contiguous(), k.contiguous(), v.contiguous(), num_landmarks,
+                        pinv_iterations, block_n)
+
+
+# ------------------------------------------------------- the backward
+
+def _softmax_vjp(a: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """d s for y = softmax(s) rows given a = softmax(s) and da = dy."""
+    return a * (da - (a * da).sum(dim=-1, keepdim=True))
+
+
+def _expand_segments(x_lm: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., m, d) -> (..., n, d): each landmark broadcast over its segment."""
+    return x_lm.repeat_interleave(n // x_lm.shape[-2], dim=-2)
+
+
+def nystrom_attention_bwd(q, k, v, g, *, num_landmarks, pinv_iterations):
+    """Analytic VJP of Nystrom attention over (b, h, n, d) q, k, v and the
+    output cotangent g; only n x m intermediates, no n x n matrix.
+
+      Qs = Q d**-0.5;  Qlm = segmean(Qs);  Klm = segmean(K)
+      A1 = softmax(Qs Klm^T);  A2 = softmax(Qlm Klm^T);  Z = NSpinv(A2)
+      A3 = softmax(Qlm K^T);   W3 = A3 V;    OUT = A1 (Z W3)
+
+    The pinv's VJP is autograd of :func:`newton_schulz_pinv` (whose init
+    divisor is detached, as JAX stops its gradient). Returns (dQ, dK, dV) in
+    float32.
+    """
+    b, h, n, d = q.shape
+    m = num_landmarks
+    seg = n // m
+    scale = d ** -0.5
+    qs = q.float() * scale
+    kf, vf = k.float(), v.float()
+    q_lm = _segment_means(qs, m)
+    k_lm = _segment_means(kf, m)
+
+    a2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)
+    with torch.enable_grad():
+        a2_var = a2.detach().requires_grad_(True)
+        z_var = newton_schulz_pinv(a2_var, pinv_iterations)
+    z = z_var.detach()
+
+    a1 = torch.softmax(qs @ k_lm.transpose(-1, -2), dim=-1)  # (b, h, n, m)
+    a3 = torch.softmax(q_lm @ kf.transpose(-1, -2), dim=-1)  # (b, h, m, n)
+    w3 = a3 @ vf
+    bmat = z @ w3
+
+    gf = g.float()
+    da1 = gf @ bmat.transpose(-1, -2)  # OUT = A1 B
+    dbmat = a1.transpose(-1, -2) @ gf
+    dz = dbmat @ w3.transpose(-1, -2)  # B = Z W3
+    dw3 = z.transpose(-1, -2) @ dbmat
+    (da2,) = torch.autograd.grad(z_var, a2_var, dz)
+    ds2 = _softmax_vjp(a2, da2)
+    da3 = dw3 @ vf.transpose(-1, -2)  # W3 = A3 V
+    dv = a3.transpose(-1, -2) @ dw3
+    ds3 = _softmax_vjp(a3, da3)
+    ds1 = _softmax_vjp(a1, da1)
+
+    dqs = ds1 @ k_lm
+    dq_lm = ds2 @ k_lm + ds3 @ kf
+    dk_lm = ds2.transpose(-1, -2) @ q_lm + ds1.transpose(-1, -2) @ qs
+    dk = ds3.transpose(-1, -2) @ q_lm
+    dqs = dqs + _expand_segments(dq_lm, n) / seg
+    dk = dk + _expand_segments(dk_lm, n) / seg
+    return dqs * scale, dk, dv

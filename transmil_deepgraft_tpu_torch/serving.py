@@ -2,7 +2,10 @@
 
 A bundle is one zip file holding ``meta.json`` and ``params.npz``, the
 flax-layout parameters flattened to ``"a/b/c"`` keys (:mod:`utils.jax_params`),
-so one set of trained weights serves from either package:
+so one set of trained weights serves from either package. :meth:`ServingBundle.load`
+also reads the bundles the JAX package exports (``variables.msgpack``, read by
+:mod:`utils.flax_msgpack`): it rebuilds the head from the weights and never
+reads their ``exported/*.jexp`` programs.
 
     export_serving_bundle(params, "head.tdx", model_name="TransMIL",
                           in_features=2048, n_classes=2)
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from transmil_deepgraft_tpu_torch.models import create_model
+from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 from transmil_deepgraft_tpu_torch.utils.jax_params import flatten, state_dict_from_jax, unflatten
 
 FORMAT_VERSION = 1
@@ -85,6 +89,10 @@ class ServingBundle:
 
     @classmethod
     def load(cls, path: str | Path, device: str | torch.device | None = None) -> "ServingBundle":
+        """Load a bundle of either package: the port's ``params.npz`` or the
+        JAX package's ``variables.msgpack`` (its ``batch_stats``, if any, are
+        not used by TransMIL; ``n_classes`` comes from the head's weights when
+        the meta has none)."""
         with zipfile.ZipFile(path) as z:
             meta = json.loads(z.read("meta.json"))
             if meta["format_version"] > FORMAT_VERSION:
@@ -92,8 +100,16 @@ class ServingBundle:
                     f"bundle format {meta['format_version']} is newer than "
                     f"this loader ({FORMAT_VERSION})"
                 )
-            with np.load(io.BytesIO(z.read("params.npz"))) as npz:
-                params = unflatten({k: npz[k] for k in npz.files})
+            names = z.namelist()
+            if "params.npz" in names:
+                with np.load(io.BytesIO(z.read("params.npz"))) as npz:
+                    params = unflatten({k: npz[k] for k in npz.files})
+            elif "variables.msgpack" in names:
+                params = read_flax_msgpack(z.read("variables.msgpack"))["params"]
+                meta.setdefault("n_classes", int(np.shape(params["fc"]["kernel"])[1]))
+            else:
+                raise ValueError(f"{path} holds neither params.npz (a bundle of the port) nor "
+                                 "variables.msgpack (a bundle of the JAX package)")
         return cls(meta, params, device)
 
     def _pad_target(self, n: int) -> int:

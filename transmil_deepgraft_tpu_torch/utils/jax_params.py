@@ -8,7 +8,9 @@ kernels (in, out) are transposed to torch (out, in); ``res_conv`` (33, heads)
 becomes (heads, 1, 33, 1); the PPEG kernels (k, k, 1, C) become (C, 1, k, k).
 
 ResNet (:func:`resnet_state_dict_from_jax`) and the int8 ResNet50
-(:func:`qresnet_from_jax`) likewise.
+(:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
+the optax state of ``create_optimizer`` (moments, slow weights, counters, the
+gradient accumulator and the plateau scale) onto the port's optimizer.
 """
 
 from __future__ import annotations
@@ -126,3 +128,47 @@ def qresnet_from_jax(q: Any):
         final_scale=t(q.final_scale), truncate_after=int(q.truncate_after),
         feature_dim=int(q.feature_dim),
     )
+
+
+def _optax_fields(node: Any, found: dict) -> None:
+    """Collect the fields of the optax states in ``node`` (NamedTuples, the
+    ``{'lr_scale': x}`` dict, tuples of chained states); the first of each
+    name wins, outermost first."""
+    if hasattr(node, "_asdict"):
+        fields = node._asdict()
+        for key, value in fields.items():
+            found.setdefault(key, value)
+        for value in fields.values():
+            _optax_fields(value, found)
+    elif isinstance(node, Mapping) and set(node) == {"lr_scale"}:
+        found.setdefault("lr_scale", node["lr_scale"])
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _optax_fields(value, found)
+
+
+def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str]) -> dict:
+    """The optax state of the JAX package's ``create_optimizer`` (numpy
+    leaves, e.g. after ``jax.device_get``) -> a state for the port's
+    ``Optimizer.load_state_dict``, each per-parameter list ordered as
+    ``names`` (the model's ``named_parameters`` order).
+
+    Reads ``ScaleByAdamState`` (count, mu, nu), ``TraceState`` (trace),
+    ``LookaheadState`` (slow_params, step), ``MultiStepsState`` (mini_step,
+    acc_grads) and the mutable lr scale; a missing piece keeps its initial
+    value."""
+    found: dict = {}
+    _optax_fields(opt_state, found)
+
+    def per_param(tree: Any) -> list[torch.Tensor]:
+        sd = state_dict_from_jax(tree, in_features)
+        return [sd[name] for name in names]
+
+    state = {"count": int(np.asarray(found.get("count", 0))),
+             "mini_step": int(np.asarray(found.get("mini_step", 0))),
+             "lookahead_step": int(np.asarray(found.get("step", 0))),
+             "lr_scale": float(np.asarray(found.get("lr_scale", 1.0)))}
+    for port_key, jax_key in (("mu", "mu"), ("nu", "nu"), ("trace", "trace"),
+                              ("slow", "slow_params"), ("acc", "acc_grads")):
+        state[port_key] = per_param(found[jax_key]) if jax_key in found else []
+    return state
