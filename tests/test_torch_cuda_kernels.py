@@ -114,14 +114,20 @@ def test_qentry_kernel_matches_plain_version(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(2, 1280), (1, 41472), (2, 1000)],
+                         ids=["train-1280", "bag-41472", "ragged-1000"])
 @pytest.mark.parametrize("form", ["packed", "bh"])
-def test_nystrom_kernels_match_plain_versions(cuda_device, form):
-    """B5/B6 on a packed qkv and B3/B4 on (b*h, n, d) arrays at the ragged
-    training shape: 2 bags, 8 heads of 64, 256 landmarks, n = 1,280 (not a
-    multiple of the 1,024-key split)."""
+def test_nystrom_kernels_match_plain_versions(cuda_device, form, b, n):
+    """B5/B6 on a packed qkv and B3/B4 on (b*h, n, d) arrays, 8 heads of 64,
+    256 landmarks: at the training shape (n = 1,280), at a 40,960-tile bag
+    (n = 41,472) and at a ragged n = 1,000 (not a multiple of the 64-key
+    tile). Each within 1e-3 and within 1e-4, the bar of the 3xTF32 split
+    (measured up to 9.9e-6; one-pass TF32 is off by ~7e-4 at the training
+    shape). The landmark kernel leaves its per-tile counters at zero, so a
+    second call gives the same result bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(7)
-    b, n, h, d, m = 2, 1280, 8, 64, 256
+    h, d, m = 8, 64, 256
 
     def t(*shape, scale=1.0):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(cuda_device)
@@ -131,15 +137,57 @@ def test_nystrom_kernels_match_plain_versions(cuda_device, form):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
     nk.reset_launch_counts()
     if form == "packed":
-        got_a = nk.landmark_attention_packed(q_lm, qkv)
+        def landmark():
+            return nk.landmark_attention_packed(q_lm, qkv)
         got_q = nk.query_landmark_attention_packed(qkv, k_lm, bmat).transpose(1, 2)
     else:
         flat = [x.reshape(b * h, -1, d).contiguous() for x in (q_lm, q, k, v, k_lm, bmat)]
-        got_a = nk.landmark_attention(flat[0], flat[2], flat[3]).reshape(b, h, m, d)
+
+        def landmark():
+            return nk.landmark_attention(flat[0], flat[2], flat[3]).reshape(b, h, m, d)
         got_q = nk.query_landmark_attention(flat[1], flat[4], flat[5]).reshape(b, h, n, d)
+    got_a, again = landmark(), landmark()
     torch.cuda.synchronize()
     want_a = nk.landmark_attention_reference(q_lm, k, v)
     want_q = nk.query_landmark_attention_reference(q, k_lm, bmat)
     assert (got_a - want_a).abs().max().item() <= 1e-3
     assert (got_q - want_q).abs().max().item() <= 1e-3
-    assert nk.LAUNCHES == {"nystrom_landmark_attn": 1, "nystrom_query_lm": 1}
+    assert (got_a - want_a).abs().max().item() <= 1e-4
+    assert (got_q - want_q).abs().max().item() <= 1e-4
+    assert torch.equal(got_a, again)
+    for buf, words in nk._SCRATCH.values():
+        assert int(buf[:words].view(torch.int32).abs().max()) == 0
+    assert nk.LAUNCHES == {"nystrom_landmark_attn": 2, "nystrom_query_lm": 1}
+
+
+@pytest.mark.cuda
+def test_nystrom_landmark_launcher_refuses_a_bad_plan(cuda_device):
+    """The landmark kernel's C launcher checks the plan it is given: a split
+    plan that misses a key tile, or scratch too small for its partials or
+    counters, returns cudaErrorInvalidValue and launches nothing. A plan
+    from landmark_plan with the wrappers' scratch is taken."""
+    b, h, n, d, m = 2, 8, 1280, 64, 256
+    lib = nk._library()  # raises if the library's tiling is not the wrappers'
+    q_lm = torch.zeros(b, h, m, d, device=cuda_device)
+    kv = torch.zeros(b, h, n, d, device=cuda_device)
+    out = torch.empty_like(q_lm)
+    tiles = b * h * m // nk.LANDMARK_ROWS
+    per, splits = nk.landmark_plan(b * h, n, 132)
+    assert splits > 1
+    part = torch.empty(tiles * splits * nk._PARTIAL, device=cuda_device)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(per, splits, part_floats, counter_words):
+        return lib.nystrom_landmark_attn(
+            q_lm.data_ptr(), kv.data_ptr(), kv.data_ptr(), h * n * d, n * d, d, out.data_ptr(),
+            part.data_ptr(), part_floats, counters.data_ptr(), counter_words, b, h, n, per,
+            splits, stream)
+
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch(per, splits - 1, part.numel(), tiles) == invalid  # the last key tiles missed
+    assert launch(per, splits, part.numel() - 1, tiles) == invalid
+    assert launch(per, splits, part.numel(), tiles - 1) == invalid
+    assert launch(per, splits, part.numel(), tiles) == 0
+    torch.cuda.synchronize()
+    assert int(counters.abs().max()) == 0

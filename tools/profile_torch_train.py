@@ -12,7 +12,8 @@ random bags of ``--tiles`` 2048-d features on the GPU and prints:
   (medians over ``--steps`` steps after a warm-up one);
 * the step as the trainer runs it (no synchronize between parts): median
   wall ms over ``--steps`` steps;
-* device time by kernel from ``torch.profiler`` over one such optimizer step,
+* device time by kernel from ``torch.profiler`` over one such optimizer step
+  (the 15 largest, and the two Nystrom landmark kernels wherever they rank),
   and the device's busy share of that step's wall time.
 
 ``--trace PATH`` also writes the profiler's chrome trace to PATH.
@@ -130,12 +131,20 @@ def main() -> int:
           f"{launches} device ops")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    nystrom_ms = {}  # the landmark kernels (B5 landmark_attn, B6 query_lm), wherever they rank
+    for e in events:
+        for name in ("landmark_attn_kernel", "query_lm_kernel"):
+            if name in e.key:
+                nystrom_ms[name] = e.self_device_time_total / 1e3
+                print(f"  Nystrom {name}: {nystrom_ms[name]:.3f} ms x{e.count} "
+                      f"({100 * nystrom_ms[name] / busy_ms:.2f}% of device busy)")
     if args.trace:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))
     print(json.dumps({"tiles": args.tiles, "step_ms": step_ms,
                       "parts_ms": {"forward": med[0], "backward": med[1], "update": med[2]},
-                      "busy_ms": busy_ms, "profiled_wall_ms": wall_ms, "device_ops": launches}))
+                      "busy_ms": busy_ms, "profiled_wall_ms": wall_ms, "device_ops": launches,
+                      "nystrom_kernels_ms": nystrom_ms}))
     return 0
 
 

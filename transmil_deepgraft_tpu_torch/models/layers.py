@@ -82,7 +82,7 @@ class NystromAttentionLayer(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if self.use_pallas:
             out_bnhd = nystrom_attention_fused_packed(qkv, self.num_landmarks,
-                                                      self.pinv_iterations, 1024)
+                                                      self.pinv_iterations)
             cls_row = None
             if return_row_index is not None:
                 cls_row = nystrom_attention_row(q, k, num_landmarks=self.num_landmarks,
