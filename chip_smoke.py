@@ -20,7 +20,8 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    model (``build_qresnet50``, 8 calibration tiles of 224x224) on the card,
    holds the stage and entry kernels against their plain versions on the
    seven segments of one chunk (stage 1, then entry + interior of stages 2-4),
-   code for code, and times each at 128 tiles;
+   code for code, logs the share of saturated codes, and times each at 128
+   tiles beside its bound and the kernels' traffic floor;
 6. serves 300 uint8 tiles (3 chunks of 128, the last ragged) through
    ``SlideInferencePipeline`` -> int8 ResNet50 -> TransMIL, checks the launch
    counts of all four kernels, the probabilities against the same pipeline on
@@ -312,6 +313,26 @@ def segment_costs(blocks, entry: bool, x_shape) -> tuple[int, int]:
     return 2 * macs, nbytes + n * h * w * cout
 
 
+def segment_floor(blocks, entry: bool, x_shape) -> int:
+    """Least bytes of one segment as ``csrc/qstage.cu`` runs it: per block,
+    conv1 reads the block input and writes h1, conv2 reads h1 and writes h2,
+    conv3 reads h2 and the block input again (the identity, or the
+    downsample's pixels) and writes the output; weights and constants once."""
+    n, h, w, cin = x_shape
+    stride = 2 if entry else 1
+    nbytes = 0
+    for blk in blocks:
+        cin, mid = blk.w1.shape[-2:]
+        cout = blk.w3.shape[-1]
+        full, out = n * h * w, n * (h // stride) * (w // stride)
+        nbytes += full * cin + 2 * full * mid + 2 * out * mid + out * cin + out * cout
+        nbytes += blk.w1.numel() + blk.w2.numel() + blk.w3.numel() + 4 * (5 * mid + 3 * cout)
+        if blk.wd is not None:
+            nbytes += blk.wd.numel()
+        h, w = h // stride, w // stride
+    return nbytes
+
+
 def phase_build() -> None:
     from transmil_deepgraft_tpu_torch.ops import _build
 
@@ -477,7 +498,13 @@ def phase_fixture(dev) -> None:
 
 def phase_qstage(rng, results: dict, dev) -> tuple:
     """B7/B8 on the seven segments of one chunk of a full-width ResNet50 at
-    224x224: int8 codes against the plain versions, then times at 128 tiles."""
+    224x224: int8 codes against the plain versions (with the share of codes
+    at -128 or 127), then times at 128 tiles beside the bound and the
+    kernels' traffic floor.
+
+    Run alone, it times whichever ``transmil_deepgraft_tpu_torch`` comes
+    first on ``sys.path``, so two checkouts can be timed in turns on one card
+    (see the verify notes)."""
     import numpy as np
     import torch
 
@@ -501,26 +528,31 @@ def phase_qstage(rng, results: dict, dev) -> tuple:
             want = plain(x)
             bad = int((got != want).sum())
             worst[kernel] = max(worst[kernel], int((got.int() - want.int()).abs().max()))
+            saturated = float(((want == -128) | (want == 127)).float().mean())
             log(f"[qstage] {name} ({kernel}) on {COMPARE_TILES} tiles {tuple(x.shape)} -> "
-                f"{tuple(want.shape)}: {bad} differing int8 codes of {want.numel()}")
+                f"{tuple(want.shape)}: {bad} differing int8 codes of {want.numel()}; "
+                f"{saturated:.2%} of the codes at -128 or 127")
             if bad:
                 raise AssertionError(f"{kernel} disagrees with its plain version on {name}")
             x = want
 
         x = _stem_q(q, torch.from_numpy(normalize_tiles(tiles_u8[:CHUNK])).to(dev))
-        totals = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in ("qstage_run", "qentry_run")}
+        totals = {k: [0.0] * 6 for k in ("qstage_run", "qentry_run")}
         for (name, kernel, run, plain), (_, blocks, entry) in zip(runs, segments(q)):
             ms = cuda_ms(lambda: run(x))
             plain_ms = cuda_ms(lambda: plain(x), reps=3, warmup=1)
             ops, nbytes = segment_costs(blocks, entry, tuple(x.shape))
             t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+            floor = segment_floor(blocks, entry, tuple(x.shape))
+            t_floor = floor / H100_BYTES_PER_S * 1e3
             log(f"[qstage] {name} ({kernel}) at {CHUNK} tiles: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms ({ops:.3e} int8 OP, "
-                f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TOP/s")
-            for i, v in enumerate((ms, plain_ms, max(t_ops, t_bytes), t_ops, t_bytes)):
+                f"{nbytes / 1e6:.1f} MB), traffic floor {t_floor:.3f} ms ({floor / 1e6:.1f} MB), "
+                f"{ops / ms / 1e9:.1f} TOP/s")
+            for i, v in enumerate((ms, plain_ms, max(t_ops, t_bytes), t_ops, t_bytes, t_floor)):
                 totals[kernel][i] += v
             x = run(x)
-    for kernel, (ms, plain_ms, bound, t_ops, t_bytes) in totals.items():
+    for kernel, (ms, plain_ms, bound, t_ops, t_bytes, t_floor) in totals.items():
         results[kernel] = {
             "name": kernel, "route": "cuda", "source": QSTAGE_SOURCE,
             "replaces": REPLACES[kernel], "launches": None, "max_abs_err": float(worst[kernel]), "ms": ms,
@@ -528,7 +560,7 @@ def phase_qstage(rng, results: dict, dev) -> tuple:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
         }
         log(f"[qstage] {kernel}, all its launches of one {CHUNK}-tile chunk: {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms")
+            f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms, traffic floor {t_floor:.3f} ms")
     return variables, tiles_u8, calib
 
 

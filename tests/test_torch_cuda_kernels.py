@@ -74,17 +74,32 @@ def _rand_qblock(rng, dev, cin, cmid, cout, has_ds):
                   torch.tensor(rng.uniform(0.5, 1.5), dtype=torch.float32, device=dev))
 
 
+def _check_repeat_call(run, first, kernel: str) -> None:
+    """A second call gives the same codes bit for bit, prepares no block
+    again, and launches the kernel once more."""
+    prepared = qk.PREPARES["blocks"]
+    again = run()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+    assert qk.PREPARES["blocks"] == prepared
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 0, kernel: 2}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 56, 64, 64, 256), (2, 14, 1024, 256, 1024)],
-                         ids=["stage1", "stage3"])
+@pytest.mark.parametrize("shape", [(3, 56, 64, 64, 256), (2, 14, 1024, 256, 1024),
+                                   (1, 28, 512, 128, 512), (1, 7, 2048, 512, 2048)],
+                         ids=["stage1", "stage3", "stage2_batch1", "stage4_batch1"])
 def test_qstage_kernel_matches_plain_version(cuda_device, shape):
     """B7: a run of stride-1 bottlenecks (the first with a downsample when the
-    width changes), int8 codes equal to the plain version's."""
+    width changes) at the widths of s1, i2, i3 and i4; every case's row count
+    (N*H*W) is not a multiple of the 128-row tile. int8 codes equal to the
+    plain version's; a second call agrees bit for bit and prepares nothing."""
     n, hw, cin, cmid, cout = shape
     rng = np.random.default_rng(hw)
     x = torch.from_numpy(rng.integers(-128, 128, (n, hw, hw, cin), dtype=np.int8)).to(cuda_device)
     blocks = [_rand_qblock(rng, cuda_device, cin, cmid, cout, cin != cout),
               _rand_qblock(rng, cuda_device, cout, cmid, cout, False)]
+    assert (n * hw * hw) % 128
     qk.reset_launch_counts()
     got = qk.fused_bottleneck_stage(x, blocks)
     torch.cuda.synchronize()
@@ -92,13 +107,17 @@ def test_qstage_kernel_matches_plain_version(cuda_device, shape):
     assert torch.unique(want).numel() > 200  # the check sees the whole code range
     assert int((got != want).sum()) == 0
     assert qk.LAUNCHES == {"qstage_run": 1, "qentry_run": 0}
+    _check_repeat_call(lambda: qk.fused_bottleneck_stage(x, blocks), got, "qstage_run")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 56, 256, 128, 512), (2, 28, 512, 256, 1024)],
-                         ids=["layer2_0", "layer3_0"])
+@pytest.mark.parametrize("shape", [(3, 56, 256, 128, 512), (2, 28, 512, 256, 1024),
+                                   (1, 14, 1024, 512, 2048)],
+                         ids=["layer2_0", "layer3_0", "layer4_0_batch1"])
 def test_qentry_kernel_matches_plain_version(cuda_device, shape):
-    """B8: one stride-2 stage-entry bottleneck with its downsample."""
+    """B8: one stride-2 stage-entry bottleneck with its downsample, at the
+    widths of e2, e3 and e4 (output rows 2,352, 392 and 49: none a multiple
+    of 128); a second call agrees bit for bit and prepares nothing."""
     n, hw, cin, cmid, cout = shape
     rng = np.random.default_rng(hw + 1)
     x = torch.from_numpy(rng.integers(-128, 128, (n, hw, hw, cin), dtype=np.int8)).to(cuda_device)
@@ -111,6 +130,30 @@ def test_qentry_kernel_matches_plain_version(cuda_device, shape):
     assert torch.unique(want).numel() > 200
     assert int((got != want).sum()) == 0
     assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 1}
+    _check_repeat_call(lambda: qk.fused_entry_block(x, blk), got, "qentry_run")
+
+
+@pytest.mark.cuda
+def test_qstage_kernel_exact_on_large_sums(cuda_device):
+    """Sums past 2^22 (inputs and weights near 127 at K = 4,608) take the
+    epilogue's exact int-to-float path; the codes still equal the plain
+    version's."""
+    rng = np.random.default_rng(3)
+    n, hw, c = 1, 7, 512
+    x = torch.from_numpy(rng.integers(100, 128, (n, hw, hw, c), dtype=np.int8)).to(cuda_device)
+    blk = _rand_qblock(rng, cuda_device, c, c, c, False)
+
+    def near_max(*shape):
+        return torch.from_numpy(rng.integers(100, 128, shape, dtype=np.int8)).to(cuda_device)
+
+    blk = blk._replace(w1=near_max(1, 1, c, c), w2=near_max(3, 3, c, c),
+                       m1=torch.full_like(blk.m1, 1e-4), z1=torch.full_like(blk.z1, 100.0),
+                       m2=torch.full_like(blk.m2, 1e-5))
+    got = qk.fused_bottleneck_stage(x, [blk])
+    torch.cuda.synchronize()
+    want = qk.stage_reference(x, [blk])
+    assert torch.unique(want).numel() > 100
+    assert int((got != want).sum()) == 0
 
 
 @pytest.mark.cuda

@@ -118,3 +118,76 @@ def test_value_errors_match_jax():
         qk.fused_stage_wpacked(x[:, :, :7], [pblk])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         qk.fused_bottleneck_stage(x.to("meta"), [pblk])
+
+
+# ------------------------------------------- the CUDA kernels' host-side layout
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("has_ds", [True, False])
+def test_prepared_weights_unpack_to_the_jax_packing(one_thread, has_ds):
+    """_prepare_block's K-major weights are _pack_block's (K, Cout) arrays
+    transposed; the scales are the same stacks; conv2's column sums are the
+    sums of its weights; a second call with the same block reuses the
+    preparation, one whose tensor changed in place makes a new one."""
+    rng = np.random.default_rng(11)
+    _, blk = rand_block(rng, 16, 8, 24 if has_ds else 16, has_ds)
+    arrays, _ = qk._pack_block(blk)
+    prep = qk._prepare_block(blk)
+    for got, want in ((prep.w1, arrays[0]), (prep.w2, arrays[2]), (prep.w3, arrays[4])):
+        assert got.is_contiguous() and got.dtype == torch.int8
+        np.testing.assert_array_equal(got.t().numpy(), want.numpy())
+    for got, want in ((prep.sc1, arrays[1]), (prep.sc2, arrays[3]), (prep.sc3, arrays[5])):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if has_ds:
+        np.testing.assert_array_equal(prep.wd.t().numpy(), arrays[6].numpy())
+        np.testing.assert_array_equal(prep.md.numpy(), arrays[7].numpy().ravel())
+    else:
+        assert prep.wd is None and prep.md is None
+    np.testing.assert_array_equal(prep.id_mult.numpy(), blk.id_mult.numpy().reshape(1))
+    assert prep.cs2.dtype == torch.int32
+    np.testing.assert_array_equal(prep.cs2.numpy(), arrays[2].numpy().astype(np.int64).sum(0))
+    assert (prep.args.cin, prep.args.cmid, prep.args.cout) == (16, 8, 24 if has_ds else 16)
+
+    before = qk.PREPARES["blocks"]
+    first = qk._prepared(blk)
+    assert qk._prepared(blk) is first and qk.PREPARES["blocks"] == before + 1
+    blk.m2.mul_(1.0)  # an in-place change: the block is prepared again
+    assert qk._prepared(blk) is not first and qk.PREPARES["blocks"] == before + 2
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_u8_offset_conv2_matches_the_minus_128_pad(one_thread, stride):
+    """conv2 as the kernels compute it: h1 stored as u8 = code + 128, the 3x3
+    pad filled with the byte 0, the int32 sum less 128 * colsum(w2), gives the
+    same sums and codes as the plain block's conv2 over a -128 pad, at every
+    pixel of a small image (most of them on its border)."""
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import _conv_q, _rq
+
+    rng = np.random.default_rng(12 + stride)
+    _, blk = rand_block(rng, 16, 16, 16, False)
+    h1 = torch.from_numpy(rng.integers(-128, 128, (2, 6, 8, 16), dtype=np.int8))
+    h1[0, :, 0] = -128  # a column of pad-valued codes next to the pad
+    want = _conv_q(torch.nn.functional.pad(h1, (0, 0, 1, 1, 1, 1), value=-128), blk.w2, stride)
+
+    cmid = blk.w2.shape[-1]
+    prep = qk._prepare_block(blk)
+    u8 = (h1.to(torch.int64) + 128).numpy()
+    padded = np.zeros((2, 8, 10, cmid), np.int64)
+    padded[:, 1:-1, 1:-1] = u8
+    ho, wo = 6 // stride, 8 // stride
+    cols = np.concatenate([padded[:, di:di + (ho - 1) * stride + 1:stride,
+                                  dj:dj + (wo - 1) * stride + 1:stride]
+                           for di in range(3) for dj in range(3)], axis=-1)
+    acc = cols @ prep.w2.numpy().astype(np.int64).T  # u8 x s8, K-major weights
+    acc -= 128 * prep.cs2.numpy().astype(np.int64)
+    assert np.abs(acc).max() < 2 ** 31
+    np.testing.assert_array_equal(acc, want.numpy().astype(np.int64))
+    got_q = _rq(torch.from_numpy(acc).double(), blk.m2, blk.z2)
+    np.testing.assert_array_equal(got_q.numpy(), _rq(want, blk.m2, blk.z2).numpy())

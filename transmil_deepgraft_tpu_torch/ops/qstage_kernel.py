@@ -11,10 +11,18 @@ kernels:
       bottleneck, 1x1 at full resolution, 3x3/s2 over a -128 pad, 1x1 +
       the 1x1/s2 downsample projection.
 
-Each launcher runs one int8 implicit-GEMM convolution kernel per conv (int32
-accumulation on the tensor cores, ``mma.sync`` s8), with the folded-fma
-epilogue of ``models/resnet_int8`` written so that it rounds exactly where
-XLA:CPU does. Intermediates live in device scratch that the wrapper allocates.
+Each launcher runs one int8 implicit-GEMM kernel three times a bottleneck
+(conv1, conv2, conv3 with the identity or the downsample in the same launch):
+``wgmma`` s8 with int32 accumulation from a ``cp.async`` ring in shared memory,
+with the folded-fma epilogue of ``models/resnet_int8`` written so that it
+rounds exactly where XLA:CPU does. conv1 stores its codes as u8 = code + 128,
+so the 3x3 pad is a zero fill and conv2 subtracts 128 * colsum(w2)
+(:func:`_prepare_block` makes the column sums). Intermediates live in device
+scratch that the wrapper allocates.
+
+A block's operands are prepared once (:func:`_prepare_block`: weights as
+(Cout, K) with K contiguous, scales stacked, column sums) and kept while the
+block's tensors live; ``PREPARES`` counts the preparations.
 
 Each wrapper (:func:`fused_bottleneck_stage`, :func:`fused_entry_block`)
 launches its kernel on a CUDA tensor, uses its plain version
@@ -27,7 +35,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+import weakref
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +46,8 @@ from transmil_deepgraft_tpu_torch.ops import _build
 
 # Launches of each kernel since the last reset_launch_counts().
 LAUNCHES = {"qstage_run": 0, "qentry_run": 0}
+# Blocks prepared for the kernels (_prepare_block) since import.
+PREPARES = {"blocks": 0}
 CHANNEL_MULTIPLE = 64  # the kernels' K and N tiles
 
 
@@ -49,10 +60,9 @@ class _QBlockArgs(ctypes.Structure):
     """Mirror of ``QBlockArgs`` in ``csrc/qstage.cu``."""
 
     _fields_ = [
-        ("w1", ctypes.c_void_p), ("sc1", ctypes.c_void_p),
-        ("w2", ctypes.c_void_p), ("sc2", ctypes.c_void_p),
-        ("w3", ctypes.c_void_p), ("sc3", ctypes.c_void_p),
-        ("wd", ctypes.c_void_p), ("md", ctypes.c_void_p),
+        ("w1", ctypes.c_void_p), ("w2", ctypes.c_void_p), ("w3", ctypes.c_void_p),
+        ("wd", ctypes.c_void_p), ("sc1", ctypes.c_void_p), ("sc2", ctypes.c_void_p),
+        ("cs2", ctypes.c_void_p), ("sc3", ctypes.c_void_p), ("md", ctypes.c_void_p),
         ("id_mult", ctypes.c_void_p),
         ("cin", ctypes.c_int), ("cmid", ctypes.c_int), ("cout", ctypes.c_int),
     ]
@@ -66,9 +76,9 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     """The built kernels with their C signatures declared (once a process)."""
     lib = _build.load("qstage")
-    lib.qstage_run.argtypes = [_P] * 7 + [ctypes.POINTER(_QBlockArgs), _I, _I, _I, _I, _P]
+    lib.qstage_run.argtypes = [_P] * 6 + [ctypes.POINTER(_QBlockArgs), _I, _I, _I, _I, _P]
     lib.qstage_run.restype = _I
-    lib.qentry_run.argtypes = [_P] * 5 + [ctypes.POINTER(_QBlockArgs), _I, _I, _I, _P]
+    lib.qentry_run.argtypes = [_P] * 4 + [ctypes.POINTER(_QBlockArgs), _I, _I, _I, _P]
     lib.qentry_run.restype = _I
     return lib
 
@@ -84,9 +94,11 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 
 def _pack_block(blk: QBlock) -> tuple[list, bool]:
-    """QBlock -> (kernel arrays, has_ds): w1 (Cin, Cmid), sc1 (2, Cmid) [m; z],
-    w2 (9*Cmid, Cmid) in (di, dj, ci) row order, sc2, w3 (Cmid, Cout), sc3,
-    then wd (Cin, Cout) and md (1, Cout), or id_mult as (1, 1)."""
+    """QBlock -> (arrays, has_ds) in the JAX kernel's layout: w1 (Cin, Cmid),
+    sc1 (2, Cmid) [m; z], w2 (9*Cmid, Cmid) in (di, dj, ci) row order, sc2,
+    w3 (Cmid, Cout), sc3, then wd (Cin, Cout) and md (1, Cout), or id_mult as
+    (1, 1). :func:`_prepare_block` transposes these weights for the CUDA
+    kernels."""
     w1 = blk.w1.reshape(blk.w1.shape[-2], blk.w1.shape[-1])
     w2 = blk.w2.reshape(-1, blk.w2.shape[-1])
     w3 = blk.w3.reshape(blk.w3.shape[-2], blk.w3.shape[-1])
@@ -101,51 +113,109 @@ def _pack_block(blk: QBlock) -> tuple[list, bool]:
     return arrays, False
 
 
+class _Prepared(NamedTuple):
+    """One block's operands for the CUDA kernels, and their C struct."""
+
+    w1: torch.Tensor  # int8 (Cmid, Cin)
+    w2: torch.Tensor  # int8 (Cmid, 9*Cmid), K in (di, dj, ci) order
+    w3: torch.Tensor  # int8 (Cout, Cmid)
+    wd: torch.Tensor | None  # int8 (Cout, Cin)
+    sc1: torch.Tensor  # float32 (2, Cmid) [m; z]
+    sc2: torch.Tensor  # float32 (2, Cmid)
+    cs2: torch.Tensor  # int32 (Cmid,): sum over K of w2
+    sc3: torch.Tensor  # float32 (2, Cout)
+    md: torch.Tensor | None  # float32 (Cout,)
+    id_mult: torch.Tensor  # float32 (1,), read on the device
+    args: _QBlockArgs
+
+
+def _prepare_block(blk: QBlock) -> _Prepared:
+    """A block's operands for the kernels: each weight as (Cout, K) with K
+    contiguous, in the (di, dj, ci) K order of :func:`_pack_block` (the
+    K-major operand of ``wgmma``, copied 16 bytes at a time); [m; z] stacked
+    per conv; conv2's column sums, for the u8 offset of its input."""
+    cin, cmid = blk.w1.shape[-2:]
+    cout = blk.w3.shape[-1]
+    dev = blk.w1.device
+    if tuple(blk.w2.shape[-3:]) != (3, cmid, cmid) or blk.w3.shape[-2] != cmid:
+        raise ValueError(f"inconsistent block widths: w1 {tuple(blk.w1.shape)}, "
+                         f"w2 {tuple(blk.w2.shape)}, w3 {tuple(blk.w3.shape)}")
+    has_ds = blk.wd is not None
+    if not has_ds and cin != cout:
+        raise ValueError(f"an identity block needs Cin == Cout, got {cin} -> {cout}")
+    weights = [("w1", blk.w1), ("w2", blk.w2), ("w3", blk.w3)] + ([("wd", blk.wd)] if has_ds else [])
+    consts = [("m1", blk.m1), ("z1", blk.z1), ("m2", blk.m2), ("z2", blk.z2), ("m3", blk.m3),
+              ("z3", blk.z3), ("id_mult", blk.id_mult)] + ([("md", blk.md)] if has_ds else [])
+    for name, t, dtype in [(n, t, torch.int8) for n, t in weights] + \
+            [(n, t, torch.float32) for n, t in consts]:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {dev}, got {t.dtype} on {t.device}")
+    if has_ds and tuple(blk.wd.shape[-2:]) != (cin, cout):
+        raise ValueError(f"downsample kernel must be ({cin}, {cout}), got {tuple(blk.wd.shape)}")
+    w2k = blk.w2.reshape(9 * cmid, cmid)
+    prep = dict(
+        w1=blk.w1.reshape(cin, cmid).t().contiguous(),
+        w2=w2k.t().contiguous(),
+        w3=blk.w3.reshape(cmid, cout).t().contiguous(),
+        wd=blk.wd.reshape(cin, cout).t().contiguous() if has_ds else None,
+        sc1=torch.stack([blk.m1, blk.z1]).contiguous(),
+        sc2=torch.stack([blk.m2, blk.z2]).contiguous(),
+        cs2=w2k.sum(0, dtype=torch.int32),
+        sc3=torch.stack([blk.m3, blk.z3]).contiguous(),
+        md=blk.md.reshape(cout).contiguous() if has_ds else None,
+        id_mult=blk.id_mult.reshape(1).contiguous(),
+    )
+    args = _QBlockArgs(cin=cin, cmid=cmid, cout=cout, **{
+        k: None if v is None else v.data_ptr() for k, v in prep.items()})
+    PREPARES["blocks"] += 1
+    return _Prepared(**prep, args=args)
+
+
+# id(block.w1) -> (identity of every tensor of the block, its preparation);
+# an entry leaves when its w1 is collected.
+_PREPARED: dict[int, tuple[tuple, _Prepared]] = {}
+
+
+def _prepared(blk: QBlock) -> _Prepared:
+    """:func:`_prepare_block` once per block: a later call with the same
+    tensors, none changed in place since, reuses the preparation."""
+    key = id(blk.w1)
+    sig = tuple(None if t is None else (id(t), -1 if t.is_inference() else t._version)
+                for t in blk)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[0] == sig:
+        return hit[1]
+    prep = _prepare_block(blk)
+    if hit is None:
+        weakref.finalize(blk.w1, _PREPARED.pop, key, None)
+    _PREPARED[key] = (sig, prep)
+    return prep
+
+
 def _check_divides(n: int, tiles_per_step: int) -> None:
     if n % tiles_per_step:
         raise ValueError(f"N={n} not divisible by tiles_per_step={tiles_per_step}")
 
 
-def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: {lib.cuda_error_string(err).decode()} ({err})")
-
-
-def _block_args(arrays: list, has_ds: bool, x_dev: torch.device) -> _QBlockArgs:
-    """Validate one packed block for the kernels and fill its C struct."""
-    w1, sc1, w2, sc2, w3, sc3 = (a.contiguous() for a in arrays[:6])
-    cin, cmid = w1.shape
-    cout = w3.shape[1]
-    for name, t, dtype in (("w1", w1, torch.int8), ("w2", w2, torch.int8),
-                           ("w3", w3, torch.int8), ("sc1", sc1, torch.float32),
-                           ("sc2", sc2, torch.float32), ("sc3", sc3, torch.float32)):
-        if t.device != x_dev or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} on {x_dev}, got {t.dtype} on {t.device}")
-    if w2.shape != (9 * cmid, cmid) or w3.shape[0] != cmid:
-        raise ValueError(f"inconsistent block widths: w1 {tuple(w1.shape)}, "
-                         f"w2 {tuple(w2.shape)}, w3 {tuple(w3.shape)}")
-    if cin % CHANNEL_MULTIPLE or cmid % CHANNEL_MULTIPLE or cout % CHANNEL_MULTIPLE:
-        raise ValueError(f"the CUDA kernels take channel counts that are multiples of "
-                         f"{CHANNEL_MULTIPLE}, got {cin}/{cmid}/{cout}")
-    args = _QBlockArgs(w1=w1.data_ptr(), sc1=sc1.data_ptr(), w2=w2.data_ptr(),
-                       sc2=sc2.data_ptr(), w3=w3.data_ptr(), sc3=sc3.data_ptr(),
-                       cin=cin, cmid=cmid, cout=cout)
-    if has_ds:
-        wd, md = arrays[6].contiguous(), arrays[7].contiguous().float()
-        if wd.shape != (cin, cout) or wd.dtype != torch.int8 or wd.device != x_dev:
-            raise ValueError(f"downsample kernel must be int8 ({cin}, {cout}) on {x_dev}")
-        args.wd, args.md = wd.data_ptr(), md.data_ptr()
-        keep = [w1, sc1, w2, sc2, w3, sc3, wd, md]
-    else:
-        if cin != cout:
-            raise ValueError(f"an identity block needs Cin == Cout, got {cin} -> {cout}")
-        idm = arrays[6].contiguous()  # read on the device: no host sync
-        if idm.device != x_dev or idm.dtype != torch.float32:
-            raise ValueError(f"id_mult must be float32 on {x_dev}")
-        args.id_mult = idm.data_ptr()
-        keep = [w1, sc1, w2, sc2, w3, sc3, idm]
-    args._keep = keep  # the tensors behind the pointers live as long as the struct
-    return args
+def _check_blocks(preps: Sequence[_Prepared], x_q: torch.Tensor) -> None:
+    """The prepared blocks chain from x_q's channels, live on its device,
+    have the kernels' channel multiples, and fit their 32-bit offsets."""
+    n, h, w, cin = x_q.shape
+    dev = x_q.device
+    widest = max(max(p.args.cin, p.args.cmid, p.args.cout) for p in preps)
+    if n * h * w * widest >= 2 ** 31:
+        raise ValueError(f"the CUDA kernels address fewer than 2^31 codes an activation: "
+                         f"split the batch of {n}")
+    for p in preps:
+        a = p.args
+        if p.w1.device != dev:
+            raise ValueError(f"the block's weights are on {p.w1.device}, x_q on {dev}")
+        if a.cin % CHANNEL_MULTIPLE or a.cmid % CHANNEL_MULTIPLE or a.cout % CHANNEL_MULTIPLE:
+            raise ValueError(f"the CUDA kernels take channel counts that are multiples of "
+                             f"{CHANNEL_MULTIPLE}, got {a.cin}/{a.cmid}/{a.cout}")
+        if a.cin != cin:
+            raise ValueError("block input widths do not chain from x_q through the blocks")
+        cin = a.cout
 
 
 def _check_input(x_q: torch.Tensor) -> None:
@@ -154,6 +224,19 @@ def _check_input(x_q: torch.Tensor) -> None:
         raise ValueError(f"x_q must be (N, H, W, C) int8, got {x_q.dtype} {tuple(x_q.shape)}")
     if x_q.data_ptr() % 16:
         raise ValueError("x_q must be 16-byte aligned")
+
+
+def _call(name: str, dev: torch.device, *args) -> None:
+    """Run the C launcher ``name`` on the current stream of ``dev``."""
+    lib = _library()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = getattr(lib, name)(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(*args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.cuda_error_string(err).decode()} ({err})")
 
 
 # ------------------------------------------------------------ plain versions
@@ -175,36 +258,26 @@ def fused_bottleneck_stage(
 ) -> torch.Tensor:
     """Run stride-1 QBlocks: (N, H, W, Cin) int8 codes (zero point -128) ->
     (N, H, W, Cout) int8. N must be divisible by ``tiles_per_step``."""
-    packed = [_pack_block(b) for b in blocks]
     _check_divides(x_q.shape[0], tiles_per_step)
     if _on_cpu(x_q):
         return stage_reference(x_q, blocks)
     x_q = x_q.contiguous()
     _check_input(x_q)
     dev = x_q.device
-    n, h, w, cin = x_q.shape
-    args = [_block_args(a, ds, dev) for a, ds in packed]
-    if args[0].cin != cin or any(a.cin != b.cout for a, b in zip(args[1:], args)):
-        raise ValueError("block input widths do not chain from x_q through the blocks")
+    n, h, w, _ = x_q.shape
+    preps = [_prepared(b) for b in blocks]
+    _check_blocks(preps, x_q)
     rows = n * h * w
-    i8 = dict(dtype=torch.int8, device=dev)
-    cmid = max(a.cmid for a in args)
-    wide = max(a.cout for a in args)
-    h1, h2 = torch.empty(rows * cmid, **i8), torch.empty(rows * cmid, **i8)
-    acts = [torch.empty(rows * wide, **i8) if len(args) > 1 else None for _ in range(2)]
-    ds = (torch.empty(rows * wide, dtype=torch.float32, device=dev)
-          if any(a.wd for a in args) else None)
-    out = torch.empty((n, h, w, args[-1].cout), **i8)
-    c_args = (_QBlockArgs * len(args))(*args)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.qstage_run(
-            x_q.data_ptr(), out.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-            *(None if a is None else a.data_ptr() for a in acts),
-            None if ds is None else ds.data_ptr(), c_args, len(args), n, h, w,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error(lib, "qstage_run", err)
+    cmid = max(p.args.cmid for p in preps)
+    wide = max(p.args.cout for p in preps)
+    h1 = torch.empty(rows * cmid, dtype=torch.uint8, device=dev)
+    h2 = torch.empty(rows * cmid, dtype=torch.int8, device=dev)
+    acts = [torch.empty(rows * wide, dtype=torch.int8, device=dev) if len(preps) > 1 else None
+            for _ in range(2)]
+    out = torch.empty((n, h, w, preps[-1].args.cout), dtype=torch.int8, device=dev)
+    c_args = (_QBlockArgs * len(preps))(*(p.args for p in preps))
+    _call("qstage_run", dev, x_q.data_ptr(), out.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+          *(None if a is None else a.data_ptr() for a in acts), c_args, len(preps), n, h, w)
     LAUNCHES["qstage_run"] += 1
     return out
 
@@ -218,31 +291,23 @@ def fused_entry_block(
     (N, 2H, 2W, Cin) int8 -> (N, H, W, Cout) int8."""
     if blk.wd is None:
         raise ValueError("entry block must carry a downsample projection")
-    arrays, _ = _pack_block(blk)
     _check_divides(x_q.shape[0], tiles_per_step)
     if _on_cpu(x_q):
         return entry_reference(x_q, blk)
     x_q = x_q.contiguous()
     _check_input(x_q)
     dev = x_q.device
-    n, h, w, cin = x_q.shape
+    n, h, w, _ = x_q.shape
     if h % 2 or w % 2:
         raise ValueError(f"the entry kernel takes an even H and W, got {h}x{w}")
-    args = _block_args(arrays, True, dev)
-    if args.cin != cin:
-        raise ValueError(f"x_q has {cin} channels, the block takes {args.cin}")
-    i8 = dict(dtype=torch.int8, device=dev)
-    h1 = torch.empty(n * h * w * args.cmid, **i8)
-    h2 = torch.empty(n * (h // 2) * (w // 2) * args.cmid, **i8)
-    ds = torch.empty(n * (h // 2) * (w // 2) * args.cout, dtype=torch.float32, device=dev)
-    out = torch.empty((n, h // 2, w // 2, args.cout), **i8)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.qentry_run(
-            x_q.data_ptr(), out.data_ptr(), h1.data_ptr(), h2.data_ptr(), ds.data_ptr(),
-            ctypes.byref(args), n, h, w, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error(lib, "qentry_run", err)
+    prep = _prepared(blk)
+    _check_blocks([prep], x_q)
+    a = prep.args
+    h1 = torch.empty(n * h * w * a.cmid, dtype=torch.uint8, device=dev)
+    h2 = torch.empty(n * (h // 2) * (w // 2) * a.cmid, dtype=torch.int8, device=dev)
+    out = torch.empty((n, h // 2, w // 2, a.cout), dtype=torch.int8, device=dev)
+    _call("qentry_run", dev, x_q.data_ptr(), out.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+          ctypes.byref(a), n, h, w)
     LAUNCHES["qentry_run"] += 1
     return out
 
