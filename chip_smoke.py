@@ -5,10 +5,13 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
     python3 chip_smoke.py
 
 1. builds the CUDA kernels from ``transmil_deepgraft_tpu_torch/csrc`` with nvcc;
-2. holds each kernel against its plain PyTorch version on one full-width
-   TransLayer (D 512, 8 heads, 256 landmarks) at n = 65,792 (the 40,960-tile
-   request's layer length) with a front pad and a non-zero LayerNorm bias,
-   and times both with CUDA events;
+2. holds K1/K2 against their plain PyTorch versions (within 1e-3 and 1e-4)
+   on one full-width TransLayer (D 512, 8 heads, 256 landmarks) at
+   n = 65,537 + 255 front pad (the 40,960-tile request's layer) with a
+   non-zero LayerNorm bias, times both with CUDA events (a call, back to
+   back) beside the split-TF32 and float32-SIMT bounds, logs the device time
+   of each part, the projections' work as one ``F.linear``, and the card's
+   TF32 tensor-core ceilings (``tools/mma_tf32_peak.cu``);
 3. serves four feature bags (300, 3,000, 12,000 and 40,960 tiles of 2048-d
    features) through a ``ServingBundle`` + ``MicroBatcher`` of a TransMIL head
    with seeded random weights, checks that each kernel ran twice per request
@@ -61,9 +64,10 @@ H100_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor-core rate (data sheet)
 H100_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor-core rate (data sheet)
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 TOL = 1e-3
-# The Nystrom kernels against their plain versions: their 3xTF32 split keeps
-# float32 accuracy (max |err| up to 9.9e-6 on an H100), where one-pass TF32
-# is off by ~7e-4 at the training shape, inside TOL.
+# The split-TF32 kernels (TransLayer projections, Nystrom landmark kernels)
+# against their plain versions: their 3xTF32 split keeps float32 accuracy
+# (max |err| up to 9.9e-6 for the Nystrom kernels on an H100), where one-pass
+# TF32 is off by ~7e-4 at the training shape, inside TOL.
 SPLIT_TOL = 1e-4
 REQUEST_TILES = (300, 3000, 12000, 40960)
 ATTENTION_TILES = 3000
@@ -333,23 +337,66 @@ def segment_floor(blocks, entry: bool, x_shape) -> int:
     return nbytes
 
 
+PEAK_TOOL = ROOT / "build" / "mma_tf32_peak"
+
+
 def phase_build() -> None:
+    """The three kernel sources (one nvcc each, started together) and, beside
+    them, the TF32 tensor-core peak tool (``tools/mma_tf32_peak.cu``)."""
     from transmil_deepgraft_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build()
-    log(f"[build] nvcc built {sorted(reports) or 'nothing (cached)'} in "
+    PEAK_TOOL.parent.mkdir(parents=True, exist_ok=True)
+    peak = subprocess.Popen([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                             "-o", str(PEAK_TOOL), str(ROOT / "tools" / "mma_tf32_peak.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        reports = _build.build()
+    finally:
+        peak_log = peak.communicate(timeout=300)[0]
+    if peak.returncode:
+        raise RuntimeError(f"nvcc failed on tools/mma_tf32_peak.cu:\n{peak_log}")
+    log(f"[build] nvcc built {sorted(reports) or 'nothing (cached)'} and the TF32 peak tool in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line.lower() for k in ("registers", "spill", "error", "wgmma", "warning")):
                 log(f"[build] {name}: {line.strip()}")
 
 
+def device_parts(fn, calls: int = 10) -> dict:
+    """Device microseconds a call of ``fn()`` by kernel (``torch.profiler``),
+    the kernel's name cut to its function."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0][:60]
+            parts[name] = parts.get(name, 0.0) + e.self_device_time_total / calls
+    return parts
+
+
 def phase_kernels(rng, results: dict, dev) -> None:
-    """Each kernel against its plain version on one full-width TransLayer."""
+    """K1/K2 against their plain versions on one full-width TransLayer, within
+    TOL and SPLIT_TOL; times a call and back to back beside the split-TF32
+    and float32-SIMT bounds, the device time by part, the GEMM part's work as
+    one ``F.linear`` (TF32 off; timed only), and the card's TF32 ceilings.
+
+    Run alone, it times whichever ``transmil_deepgraft_tpu_torch`` comes
+    first on ``sys.path``, so two checkouts can be timed in turns on one card
+    (see the verify notes)."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
     from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d
@@ -389,28 +436,45 @@ def phase_kernels(rng, results: dict, dev) -> None:
         want_y = tk.k2_reference(*k2_args)
         err2 = (got_y - want_y).abs().max().item()
 
-        timing = {
-            "translayer_k1": (cuda_ms(lambda: tk.translayer_k1(*k1_args)),
-                              cuda_ms(lambda: tk.k1_reference(*k1_args))),
-            "translayer_k2": (cuda_ms(lambda: tk.translayer_k2(*k2_args)),
-                              cuda_ms(lambda: tk.k2_reference(*k2_args))),
-        }
+        runs = {"translayer_k1": (lambda: tk.translayer_k1(*k1_args),
+                                  lambda: tk.k1_reference(*k1_args)),
+                "translayer_k2": (lambda: tk.translayer_k2(*k2_args),
+                                  lambda: tk.k2_reference(*k2_args))}
+        timing = {name: (cuda_ms(kernel), cuda_ms_back_to_back(kernel, 20),
+                         cuda_ms(plain, reps=3, warmup=1), device_parts(kernel),
+                         host_us(kernel, 50))
+                  for name, (kernel, plain) in runs.items()}
+        rows = x[0]
+        linear_ms = {"[K|V] (1,024 columns)": cuda_ms(lambda: F.linear(rows, w_kv)),
+                     "Q or out (512 columns)": cuda_ms(lambda: F.linear(rows, w_q))}
     costs = kernel_costs(n, n_pad)
     for name, err in (("translayer_k1", err1), ("translayer_k2", err2)):
         flops, nbytes = costs[name]
-        t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        ms, plain_ms = timing[name]
+        bound_ms, by = bound(3 * flops, nbytes, H100_TF32_FLOPS)
+        simt_ms = bound(flops, nbytes)[0]
+        ms, ms_b2b, plain_ms, parts, enqueue_us = timing[name]
         results[name] = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "ms_back_to_back": ms_b2b,
         }
-        log(f"[kernels] {name}: max|err| {err:.3e} (tol {TOL}), kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
-            f"({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
-        if not err <= TOL:
-            raise AssertionError(f"{name} disagrees with its plain version: {err} > {TOL}")
+        log(f"[kernels] {name}: max|err| {err:.3e} (tol {SPLIT_TOL}, and {TOL}), kernel "
+            f"{ms:.4f} ms a call, {ms_b2b:.4f} back to back, host {enqueue_us:.1f} us + device "
+            f"{sum(parts.values()):.1f} us; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({by}, split TF32), float32 SIMT {simt_ms:.4f} ({flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        log(f"[kernels] {name} device us a call by part: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+        if not (err <= TOL and err <= SPLIT_TOL):
+            raise AssertionError(f"{name} disagrees with its plain version: {err} > {SPLIT_TOL}")
+    log("[kernels] the projections' work as one F.linear (TF32 off, timed only): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in linear_ms.items()))
+    if PEAK_TOOL.exists():
+        peak = subprocess.run([str(PEAK_TOOL)], capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for line in peak.splitlines():
+            if line.startswith("wgmma") or "32 warps" in line:
+                log(f"[kernels] TF32 ceiling: {line}")
 
 
 def phase_serving(rng, results: dict, workdir: Path, dev) -> None:

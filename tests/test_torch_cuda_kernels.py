@@ -24,33 +24,67 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [257, 3000])
-def test_cuda_kernels_match_plain_versions(cuda_device, n):
-    """Both kernels against their plain versions at full width (D 512, 8
-    heads, 256 landmarks), with a front pad and a non-zero LN bias."""
+@pytest.mark.parametrize("n", [257, 3000, 4096], ids=["n257", "n3000", "n4096-no-pad"])
+@pytest.mark.parametrize("b", [1, 2], ids=["batch1", "batch2"])
+def test_cuda_kernels_match_plain_versions(cuda_device, b, n):
+    """K1 and K2 against their plain versions at full width (D 512, 8 heads,
+    256 landmarks), batch 1 and 2, with a front pad (none at n = 4,096) and a
+    non-zero LN bias: within 1e-3 and within 1e-4, the bar of the 3xTF32
+    split. Then w_qkv and w_out change in place and a second call is held to
+    the plain version on the new weights (the split is made per call). K1/K2
+    count one launch a call; the landmark kernels they run count none."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(n)
+    rng = np.random.default_rng(n + b)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)
 
     dim = 512
-    x = t(rng.standard_normal((1, n, dim)))
+    x = t(rng.standard_normal((b, n, dim)))
     ln_w, ln_b = t(1 + 0.1 * rng.standard_normal(dim)), t(0.5 * rng.standard_normal(dim))
     w_qkv = t(rng.standard_normal((3 * dim, dim)) / np.sqrt(dim))
+    w_out, b_out = t(rng.standard_normal((dim, dim)) / np.sqrt(dim)), t(rng.standard_normal(dim))
+    res = t(rng.standard_normal((b, n, dim)))
     n_pad = tk.landmark_pad(n, 256)
-    q_lm, k_lm, pinv = tk.landmark_glue(x, n_pad, ln_w, ln_b, w_qkv, heads=8, dim_head=64,
-                                        num_landmarks=256, pinv_iterations=6)
+    assert (n_pad == 0) == (n == 4096)
     tk.reset_launch_counts()
-    k1_args = (x, n_pad, ln_w, ln_b, w_qkv[dim:], q_lm)
-    for got, want in zip(tk.translayer_k1(*k1_args), tk.k1_reference(*k1_args)):
-        assert (got - want).abs().max().item() <= 1e-3
-    bmat = (pinv @ tk.k1_reference(*k1_args)[0]).contiguous()
-    res = t(rng.standard_normal((1, n, dim)))
-    k2_args = (x, res, ln_w, ln_b, w_qkv[:dim], k_lm, bmat,
-               t(rng.standard_normal((dim, dim)) / np.sqrt(dim)), t(rng.standard_normal(dim)), 0.125)
-    assert (tk.translayer_k2(*k2_args) - tk.k2_reference(*k2_args)).abs().max().item() <= 1e-3
-    assert tk.LAUNCHES == {"translayer_k1": 1, "translayer_k2": 1}
+    nk.reset_launch_counts()
+    for call in range(2):
+        q_lm, k_lm, pinv = tk.landmark_glue(x, n_pad, ln_w, ln_b, w_qkv, heads=8, dim_head=64,
+                                            num_landmarks=256, pinv_iterations=6)
+        k1_args = (x, n_pad, ln_w, ln_b, w_qkv[dim:], q_lm)
+        want_a, want_v = tk.k1_reference(*k1_args)
+        bmat = (pinv @ want_a).contiguous()
+        k2_args = (x, res, ln_w, ln_b, w_qkv[:dim], k_lm, bmat, w_out, b_out, 0.125)
+        got = (*tk.translayer_k1(*k1_args), tk.translayer_k2(*k2_args))
+        torch.cuda.synchronize()
+        for g, want in zip(got, (want_a, want_v, tk.k2_reference(*k2_args))):
+            assert (g - want).abs().max().item() <= 1e-3
+            assert (g - want).abs().max().item() <= 1e-4
+        with torch.no_grad():  # as an optimizer step does, between two calls
+            w_qkv.mul_(0.9).add_(0.01)
+            w_out.mul_(1.1)
+    assert tk.LAUNCHES == {"translayer_k1": 2, "translayer_k2": 2}
+    assert nk.LAUNCHES == {"nystrom_landmark_attn": 0, "nystrom_query_lm": 0}
+
+
+@pytest.mark.cuda
+def test_translayer_gemm_matches_float64_linear(cuda_device):
+    """The projections' GEMM alone (the out projection with res, x and b_out
+    zero: y = O W^T) at a ragged M = 1,000 (not a multiple of its 128-row
+    tile) against float64 ``F.linear``, within 1e-4; rows past M untouched."""
+    rng = np.random.default_rng(11)
+    rows, dim = 1000, 512
+    o = torch.from_numpy(rng.standard_normal((1, rows, dim), dtype=np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((dim, dim)) / np.sqrt(dim)).astype(np.float32))
+    w = w.to(cuda_device)
+    zeros = torch.zeros_like(o)
+    y = torch.full((1, rows + 1, dim), 7.0, device=cuda_device)
+    tk._out_projection(o, zeros, zeros, w, zeros[0, 0], y[:, :rows])
+    torch.cuda.synchronize()
+    want = torch.nn.functional.linear(o.double(), w.double())
+    assert (y[:, :rows].double() - want).abs().max().item() <= 1e-4
+    assert bool((y[:, rows:] == 7.0).all())
 
 
 def _rand_qblock(rng, dev, cin, cmid, cout, has_ds):

@@ -122,18 +122,23 @@ def test_wrappers_refuse_other_devices():
         tnk.landmark_attention(q_lm, k, v)
 
 
-@pytest.mark.parametrize("bh,n", [(16, 1280), (8, 41472), (16, 1000), (1, 1), (3, 64), (8, 65),
-                                  (1, 100_000)])
-def test_grid_plans_cover_every_key_and_row_once(bh, n):
+@pytest.mark.parametrize("bh,n,max_per", [(16, 1280, None), (8, 41472, None), (16, 1000, None),
+                                          (1, 1, None), (3, 64, None), (8, 65, None),
+                                          (1, 100_000, None), (8, 65792, 8), (16, 3256, 8),
+                                          (8, 65, 1)])
+def test_grid_plans_cover_every_key_and_row_once(bh, n, max_per):
     """The wrappers' grid plans, read as csrc/nystrom.cu reads them: the
-    landmark kernel's splits take every 64-key tile once and none is empty;
-    the query kernel's blocks take every 128-row tile of every head once. On
-    132 SMs the training shape (b 2 x 8 heads, n = 1,280) and a 40,960-tile
-    bag (b 1, n = 41,472) give the grids the source's note states."""
+    landmark kernel's splits take every 64-key tile once and none is empty,
+    none longer than ``max_per`` tiles (TransLayer K1's cap, here at the
+    40,960-tile request's layer and at b 2, n 3,000); the query kernel's
+    blocks take every 128-row tile of every head once. On 132 SMs the
+    training shape (b 2 x 8 heads, n = 1,280) and a 40,960-tile bag (b 1,
+    n = 41,472) give the grids the source's note states."""
     sms = 132
-    per, splits = tnk.landmark_plan(bh, n, sms)
+    per, splits = tnk.landmark_plan(bh, n, sms, max_per)
     tiles = -(-n // tnk.KEY_TILE)
     assert per >= 1 and splits >= 1
+    assert max_per is None or per <= max_per
     covered = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, tiles))]
     assert covered == list(range(tiles))
     assert all(s * per < tiles for s in range(splits))  # no split without keys
@@ -171,21 +176,35 @@ def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
-def test_split_tf32_holds_float32_where_one_pass_tf32_does_not():
-    """Why the kernels take the 3xTF32 split: B6's arithmetic at the training
-    shape (b 2 x 8 heads of 64, n = 1,280, 256 landmarks; chip_smoke's input
-    scales) emulated in plain torch. With both products split the result is
-    within 1e-5 of the float32 plain version; with both in one-pass TF32
-    (operands rounded to TF32) it is off by more than the 1e-4 training bar."""
-    rng = np.random.default_rng(7)
+def _query_attention_case(rng):
+    """B6's arithmetic at the training shape (b 2 x 8 heads of 64, n = 1,280,
+    256 landmarks; chip_smoke's input scales): (plain, split, one-pass)."""
     bh, n, d, m = 16, 1280, 64, 256
     q = torch.from_numpy(rng.standard_normal((bh, n, d), dtype=np.float32))
     k_lm = torch.from_numpy(0.125 * rng.standard_normal((bh, m, d), dtype=np.float32))
     bmat = torch.from_numpy(rng.standard_normal((bh, m, d), dtype=np.float32))
     want = tnk.query_landmark_attention_reference(q, k_lm, bmat)
-
     split = _split_matmul(torch.softmax(_split_matmul(q, k_lm.transpose(1, 2)), -1), bmat)
     p1 = torch.softmax(_tf32_round(q) @ _tf32_round(k_lm).transpose(1, 2), -1)
-    one_pass = _tf32_round(p1) @ _tf32_round(bmat)
+    return want, split, _tf32_round(p1) @ _tf32_round(bmat)
+
+
+def _projection_case(rng):
+    """A TransLayer projection (csrc/translayer.cu): 256 LayerNormed rows
+    times a (1024, 512) fan-in-scaled weight, 512 deep: (plain, split,
+    one-pass)."""
+    x = torch.from_numpy(rng.standard_normal((256, 512), dtype=np.float32))
+    w = torch.from_numpy((rng.standard_normal((1024, 512)) / np.sqrt(512)).astype(np.float32))
+    return x @ w.t(), _split_matmul(x, w.t()), _tf32_round(x) @ _tf32_round(w).t()
+
+
+@pytest.mark.parametrize("case", [_query_attention_case, _projection_case],
+                         ids=["query_attention", "projection"])
+def test_split_tf32_holds_float32_where_one_pass_tf32_does_not(case):
+    """Why the kernels take the 3xTF32 split: their arithmetic emulated in
+    plain torch. With every product split the result is within 1e-5 of the
+    float32 plain version; in one-pass TF32 (operands rounded to TF32) it is
+    off by more than the kernels' 1e-4 bar."""
+    want, split, one_pass = case(np.random.default_rng(7))
     assert (split - want).abs().max().item() <= 1e-5
     assert (one_pass - want).abs().max().item() > 1e-4

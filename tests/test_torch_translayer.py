@@ -4,6 +4,9 @@ kernels on the CPU) against the JAX package's TransLayer.
 The port follows the XLA path's front padding (zeros AFTER LayerNorm), so it
 is held to that path with a front pad and a non-zero LayerNorm bias, and to
 JAX's Pallas ``fused_translayer`` (interpret mode) where no pad is needed.
+One more runs the card path's staging (the padded K/V buffers, the strides
+handed to the landmark kernels, the V view, O + res) at full width with plain
+stand-ins for its launches.
 """
 
 import flax.linen as fnn
@@ -11,12 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from transmil_deepgraft_tpu.models.layers import NystromAttentionLayer as JaxNystromLayer
 from transmil_deepgraft_tpu.ops.pallas.translayer_kernel import fused_translayer as jax_fused
 from transmil_deepgraft_tpu_torch.models.layers import NystromAttentionLayer
+from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
 from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d
 
 DIM, HEADS, M = 64, 2, 16
 TOL = 5e-4  # the bar tests/test_pallas_nystrom.py holds the JAX fused layer to
@@ -160,3 +166,79 @@ def test_cpu_path_does_not_count_launches():
     with torch.no_grad():
         tk.fused_translayer(torch.from_numpy(x), *_torch_weights(p), **KW)
     assert tk.LAUNCHES == {"translayer_k1": 0, "translayer_k2": 0}
+
+
+def _plain_parts() -> tk._Parts:
+    """The card path's launches as plain torch ops on the same buffers: the
+    landmark attentions read K, V and Q, and write O, only through the
+    (batch, head, row) strides the staging hands them."""
+    def strided(t, b, h, rows, d, strides):
+        return torch.as_strided(t, (b, h, rows, d), (*strides, 1))
+
+    def project_kv(x, ln_weight, ln_bias, w_kv, kv, n_pad):
+        y = F.layer_norm(x, x.shape[-1:], ln_weight, ln_bias, tk.LN_EPS) @ w_kv.t()
+        kv[:, :, n_pad:] = y.unflatten(-1, (2, -1)).movedim(2, 0)
+
+    def landmark(q_lm, k, v, strides, keys):
+        b, h, _, d = q_lm.shape
+        return nk.landmark_attention_reference(q_lm, strided(k, b, h, keys, d, strides),
+                                               strided(v, b, h, keys, d, strides))
+
+    def project_q(x, ln_weight, ln_bias, w_q, scale, q):
+        q.copy_(F.layer_norm(x, x.shape[-1:], ln_weight, ln_bias, tk.LN_EPS) @ w_q.t() * scale)
+
+    def query(q, k_lm, bmat, o, strides, n):
+        b, h, _, d = k_lm.shape
+        strided(o, b, h, n, d, strides).copy_(nk.query_landmark_attention_reference(
+            strided(q, b, h, n, d, strides), k_lm, bmat))
+
+    def project_out(o, res, x, w_out, b_out, y):
+        y.copy_((o + res) @ w_out.t() + b_out + x)
+
+    return tk._Parts(project_kv, landmark, project_q, query, project_out)
+
+
+def test_card_staging_matches_plain_kernels_at_full_width():
+    """K1 and K2 as the card runs them (``_k1_stages``/``_k2_stages``) with
+    plain launches, at D 512, 8 heads of 64, 256 landmarks, b 2, n 300
+    (front pad 212) under an LN bias of 0.5: within 1e-5 of k1_reference and
+    k2_reference. The pad rows of both buffers are zero and V is the real
+    rows of its buffer."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(5)
+    b, n, dim = 2, 300, 512
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    x = t(rng.standard_normal((b, n, dim)))
+    ln_w, ln_b = t(1 + 0.1 * rng.standard_normal(dim)), t(0.5 * rng.standard_normal(dim))
+    w_qkv = t(rng.standard_normal((3 * dim, dim)) / np.sqrt(dim))
+    w_out = t(rng.standard_normal((dim, dim)) / np.sqrt(dim))
+    b_out = t(0.1 * rng.standard_normal(dim))
+    res_w = t(rng.standard_normal((8, 1, 33, 1)) / np.sqrt(33))
+    n_pad = tk.landmark_pad(n, 256)
+    keys = n + n_pad
+    try:
+        with torch.no_grad():
+            q_lm, k_lm, pinv = tk.landmark_glue(x, n_pad, ln_w, ln_b, w_qkv, heads=8, dim_head=64,
+                                                num_landmarks=256, pinv_iterations=6)
+            k1_args = (x, n_pad, ln_w, ln_b, w_qkv[dim:], q_lm)
+            got_a, got_v = tk._k1_stages(*k1_args, parts=_plain_parts())
+            want_a, want_v = tk.k1_reference(*k1_args)
+            assert (got_a - want_a).abs().max().item() <= 1e-5
+            assert (got_v - want_v).abs().max().item() <= 1e-5
+            assert got_v.stride() == (keys * dim, dim, 1)  # a view of the V buffer
+            for plane in (0, 1):  # the K and V buffers' first n_pad rows of each batch
+                pads = torch.as_strided(got_v, (b, n_pad, dim), (keys * dim, dim, 1),
+                                        plane * b * keys * dim)
+                assert not pads.any()
+
+            bmat = (pinv @ got_a).contiguous()
+            res = depthwise_conv1d(got_v, tk.value_residual_kernel(res_w, 64)).contiguous()
+            k2_args = (x, res, ln_w, ln_b, w_qkv[:dim], k_lm, bmat, w_out, b_out, 0.125)
+            got_y = tk._k2_stages(*k2_args, parts=_plain_parts())
+            assert (got_y - tk.k2_reference(*k2_args)).abs().max().item() <= 1e-5
+    finally:
+        torch.set_num_threads(threads)

@@ -97,16 +97,19 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def landmark_plan(bh: int, n: int, sms: int) -> tuple[int, int]:
+def landmark_plan(bh: int, n: int, sms: int, max_per: int | None = None) -> tuple[int, int]:
     """(key tiles a split, splits) of the landmark kernel for b*h heads of n
     keys on ``sms`` SMs. Split s takes the 64-key tiles
     [s * per, min((s + 1) * per, ceil(n / 64))); the grid is
     (4, splits, b*h). The fewest tiles a split that still give about
-    LANDMARK_BLOCKS_PER_SM blocks an SM; every split holds at least one tile."""
+    LANDMARK_BLOCKS_PER_SM blocks an SM, and at most ``max_per``; every split
+    holds at least one tile."""
     tiles = -(-n // KEY_TILE)
     row_tiles = bh * (KERNEL_LANDMARKS // LANDMARK_ROWS)
     want = max(1, LANDMARK_BLOCKS_PER_SM * sms // row_tiles)
     per = -(-tiles // want)
+    if max_per is not None:
+        per = min(per, max_per)
     return per, -(-tiles // per)
 
 
@@ -215,15 +218,18 @@ def query_landmark_attention_reference(q: torch.Tensor, k_lm: torch.Tensor,
 
 # ------------------------------------------------------- kernel launches
 
-def _launch_landmark(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n):
-    """q_lm (batch, heads, m, d); k and v read from ``k_ptr``/``v_ptr`` at
-    ``k_strides`` (batch, head, row) -> (batch, heads, m, d). The caller has
-    checked k and v."""
+def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n, max_split_tiles=None):
+    """B5/B3's kernel, uncounted: q_lm (batch, heads, m, d); k and v read from
+    ``k_ptr``/``v_ptr`` at ``k_strides`` (batch, head, row), in floats ->
+    (batch, heads, m, d), with at most ``max_split_tiles`` key tiles a split
+    if given. The caller has checked k and v. The TransLayer kernels
+    (``translayer_kernel``) launch it through here and count their own
+    calls."""
     dev = q_lm.device
     _check_landmarks("q_lm", q_lm, batch, heads, dev)
     _check_length(n)
     bh = batch * heads
-    per, splits = landmark_plan(bh, n, _sm_count(dev.index))
+    per, splits = landmark_plan(bh, n, _sm_count(dev.index), max_split_tiles)
     stream = _stream(dev)
     out = torch.empty((batch, heads, KERNEL_LANDMARKS, KERNEL_DIM_HEAD), dtype=torch.float32,
                       device=dev)
@@ -233,15 +239,23 @@ def _launch_landmark(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n):
         scratch = _scratch(dev, stream, tiles, tiles * splits * _PARTIAL)
     _call(_library(), "nystrom_landmark_attn", dev, q_lm.data_ptr(), k_ptr, v_ptr, *k_strides,
           out.data_ptr(), *scratch, batch, heads, n, per, splits, stream)
+    return out
+
+
+def _launch_landmark(*args):
+    """:func:`landmark_launch`, counted as one launch of B5/B3."""
+    out = landmark_launch(*args)
     LAUNCHES["nystrom_landmark_attn"] += 1
     return out
 
 
-def _launch_query(q, q_ptr, q_strides, k_lm, bmat, out, o_strides, batch, heads, n):
-    """Rows of q read from ``q_ptr`` at ``q_strides``; k_lm, bmat (batch,
-    heads, m, d); the result written into ``out`` (float32, allocated by the
-    caller on q's device) at ``o_strides``. ``q`` is the tensor whose rows are
-    read, checked here."""
+def query_launch(q, q_ptr, q_strides, k_lm, bmat, out, o_strides, batch, heads, n):
+    """B6/B4's kernel, uncounted: rows of q read from ``q_ptr`` at
+    ``q_strides`` (batch, head, row), in floats; k_lm, bmat (batch, heads, m,
+    d); the result written into ``out`` (float32, allocated by the caller on
+    q's device) at ``o_strides``. ``q`` is the tensor whose rows are read,
+    checked here. The TransLayer kernels launch it through here and count
+    their own calls."""
     dev = q.device
     _check_rows("q", q, dev)
     _check_landmarks("k_lm", k_lm, batch, heads, dev)
@@ -250,6 +264,12 @@ def _launch_query(q, q_ptr, q_strides, k_lm, bmat, out, o_strides, batch, heads,
     blocks = query_plan(batch * heads, n, _sm_count(dev.index))
     _call(_library(), "nystrom_query_lm", dev, q_ptr, *q_strides, k_lm.data_ptr(),
           bmat.data_ptr(), out.data_ptr(), *o_strides, batch, heads, n, blocks, _stream(dev))
+    return out
+
+
+def _launch_query(*args):
+    """:func:`query_launch`, counted as one launch of B6/B4."""
+    out = query_launch(*args)
     LAUNCHES["nystrom_query_lm"] += 1
     return out
 

@@ -3,13 +3,23 @@
 
     y = x + W_out( attn(LN(x)) + res_conv(V) ) + b_out
 
-runs as two hand-written CUDA kernels (``csrc/translayer.cu``) plus glue in
-torch ops, as the JAX package leaves its glue to XLA:
+runs as two kernel wrappers plus glue in torch ops, as the JAX package leaves
+its glue to XLA:
 
   glue : x_lm = segmean(LN(x)), q_lm/k_lm, attn2 softmax, Newton-Schulz pinv
   K1   : LN -> K/V projection -> attn3_v = softmax(q_lm K^T) V; V written out
   glue : B = pinv(attn2) attn3_v; res = 33-tap depthwise conv of V
   K2   : LN -> Q projection -> softmax(Q k_lm^T) B -> + res -> W_out + b_out + x
+
+On the card each wrapper is a short sequence of launches (:func:`_k1_stages`,
+:func:`_k2_stages`): the projections are one hand-written TF32 tensor-core
+GEMM (``csrc/translayer.cu``) with LayerNorm or ``O + res`` applied to its A
+operand on the way in, and the two landmark attentions are the kernels of
+B5 and B6 (``csrc/nystrom.cu``, through :mod:`.nystrom_kernel`'s uncounted
+launch path), which read K, V and Q in place through (batch, head, row)
+strides. Every product uses the 3xTF32 split and keeps float32 accuracy. The
+weights' hi/lo split is made on every call: the optimizer changes them in
+place between validation calls.
 
 Front padding follows the reference's XLA path, not JAX's ``fused_translayer``:
 the layer input is front-padded to a multiple of the landmark count AFTER
@@ -19,7 +29,7 @@ output. (JAX's fused kernels pad before LayerNorm and so see pad rows equal
 to the LN bias.)
 
 Each kernel wrapper (:func:`translayer_k1`, :func:`translayer_k2`) launches its
-kernel on a CUDA tensor, uses its plain version (:func:`k1_reference`,
+kernels on a CUDA tensor, uses its plain version (:func:`k1_reference`,
 :func:`k2_reference`) on a CPU tensor, and raises on anything else. Weights are
 in the port's torch layout: ``w_qkv`` (3*inner, D), ``w_out`` (D, inner),
 ``res_weight`` (heads, 1, 33, 1).
@@ -29,11 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from transmil_deepgraft_tpu_torch.ops import _build
+from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
 from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d
 from transmil_deepgraft_tpu_torch.ops.nystrom import nystrom_attention
 from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv
@@ -41,8 +53,14 @@ from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv
 LN_EPS = 1e-5
 # The only shape the kernels are built for: the model the repository ships.
 KERNEL_DIM, KERNEL_HEADS, KERNEL_DIM_HEAD, KERNEL_LANDMARKS = 512, 8, 64, 256
+# Key tiles (of 64) a split of the landmark kernel in K1, at most. The tensor
+# cores truncate as they accumulate, so the landmark kernel's error grows with
+# the keys a split sums; V's columns carry LN(x)'s bias and do not cancel.
+K1_SPLIT_TILES = 8
+# The kernels address buffers with 32-bit offsets.
+OFFSET_LIMIT = 2**31
 
-# Launches of each kernel since the last reset_launch_counts().
+# Calls of each kernel wrapper on the card since the last reset_launch_counts().
 LAUNCHES = {"translayer_k1": 0, "translayer_k2": 0}
 
 
@@ -59,12 +77,12 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     """The built kernels with their C signatures declared (once a process)."""
     lib = _build.load("translayer")
-    lib.translayer_k1.argtypes = [_P] * 11 + [_I, _I, _I, _P]
-    lib.translayer_k1.restype = _I
-    lib.translayer_k1_chunks.argtypes = [_I]
-    lib.translayer_k1_chunks.restype = _I
-    lib.translayer_k2.argtypes = [_P] * 10 + [_I, _I, ctypes.c_float, _P]
-    lib.translayer_k2.restype = _I
+    lib.translayer_kv_projection.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    lib.translayer_kv_projection.restype = _I
+    lib.translayer_q_projection.argtypes = [_P] * 7 + [_I, ctypes.c_float, _P]
+    lib.translayer_q_projection.restype = _I
+    lib.translayer_out_projection.argtypes = [_P] * 7 + [_I, _P]
+    lib.translayer_out_projection.restype = _I
     return lib
 
 
@@ -98,9 +116,106 @@ def _check_kernel_width(x: torch.Tensor) -> None:
         )
 
 
-def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: {lib.cuda_error_string(err).decode()} ({err})")
+def _check_offsets(rows: int) -> None:
+    if rows * KERNEL_DIM >= OFFSET_LIMIT:
+        raise ValueError(f"{rows} rows of {KERNEL_DIM} pass the kernels' 32-bit offsets")
+
+
+def _run(name: str, dev: torch.device, *args) -> None:
+    """Run the C launcher ``name`` of the translayer library on ``dev``'s
+    current stream (appended to ``args``)."""
+    nk._call(_library(), name, dev, *args, nk._stream(dev))
+
+
+# ------------------------------------------------------- the card's launches
+
+class _Parts(NamedTuple):
+    """The launches the kernel wrappers are made of, in (batch, head, row)
+    terms that the plain stand-ins in the CPU tests share."""
+
+    # (x, ln_weight, ln_bias, w_kv, kv, n_pad): K and V into rows n_pad.. of
+    # each batch of kv[0] and kv[1]
+    project_kv: Callable
+    # (q_lm, k, v, strides, keys) -> softmax(q_lm K^T) V, K and V read from
+    # k and v's first float at strides (batch, head, row)
+    landmark: Callable
+    # (x, ln_weight, ln_bias, w_q, scale, q): q = LN(x) W_q^T * scale
+    project_q: Callable
+    # (q, k_lm, bmat, o, strides, n): o = softmax(Q k_lm^T) B, Q read from q
+    # and written to o at strides (batch, head, row)
+    query: Callable
+    # (o, res, x, w_out, b_out, y): y = (o + res) W_out^T + b_out + x
+    project_out: Callable
+
+
+def _kv_projection(x, ln_weight, ln_bias, w_kv, kv, n_pad):
+    b, n, dim = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    w_split = torch.empty((2, 2 * dim, dim), **f32)
+    stats = torch.empty((b * n, 2), **f32)
+    _run("translayer_kv_projection", x.device, x.data_ptr(), ln_weight.data_ptr(),
+         ln_bias.data_ptr(), w_kv.data_ptr(), w_split.data_ptr(), stats.data_ptr(),
+         kv[0].data_ptr(), kv[1].data_ptr(), b, n, n_pad)
+
+
+def _landmark(q_lm, k, v, strides, keys):
+    b, h = q_lm.shape[:2]
+    return nk.landmark_launch(q_lm, k.data_ptr(), v.data_ptr(), strides, b, h, keys,
+                              K1_SPLIT_TILES)
+
+
+def _q_projection(x, ln_weight, ln_bias, w_q, scale, q):
+    dim = x.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    w_split = torch.empty((2, dim, dim), **f32)
+    stats = torch.empty((x.shape[0] * x.shape[1], 2), **f32)
+    _run("translayer_q_projection", x.device, x.data_ptr(), ln_weight.data_ptr(),
+         ln_bias.data_ptr(), w_q.data_ptr(), w_split.data_ptr(), stats.data_ptr(), q.data_ptr(),
+         x.shape[0] * x.shape[1], float(scale))
+
+
+def _query(q, k_lm, bmat, o, strides, n):
+    b, h = k_lm.shape[:2]
+    nk.query_launch(q.view(b, n, h, -1), q.data_ptr(), strides, k_lm, bmat, o, strides, b, h, n)
+
+
+def _out_projection(o, res, x, w_out, b_out, y):
+    dim = x.shape[-1]
+    w_split = torch.empty((2, dim, dim), dtype=torch.float32, device=x.device)
+    _run("translayer_out_projection", x.device, o.data_ptr(), res.data_ptr(), x.data_ptr(),
+         w_out.data_ptr(), w_split.data_ptr(), b_out.data_ptr(), y.data_ptr(),
+         x.shape[0] * x.shape[1])
+
+
+_KERNELS = _Parts(_kv_projection, _landmark, _q_projection, _query, _out_projection)
+
+
+def _k1_stages(x, n_pad, ln_weight, ln_bias, w_kv, q_lm, parts: _Parts = _KERNELS):
+    """K1 as its launches: [K|V] into buffers of n_pad + n rows a batch whose
+    first n_pad rows are zero (pad keys are zeros after LayerNorm: score 0,
+    V = 0), then the landmark attention over all n_pad + n keys. Returns
+    (attn3_v, V's real rows as a view of its buffer)."""
+    b, n, dim = x.shape
+    keys = n_pad + n
+    kv = x.new_empty((2, b, keys, dim))
+    kv[:, :, :n_pad] = 0
+    parts.project_kv(x, ln_weight, ln_bias, w_kv, kv, n_pad)
+    attn3_v = parts.landmark(q_lm, kv[0], kv[1], (keys * dim, KERNEL_DIM_HEAD, dim), keys)
+    return attn3_v, kv[1, :, n_pad:]
+
+
+def _k2_stages(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, scale,
+               parts: _Parts = _KERNELS):
+    """K2 as its launches: Q, the query attention over the landmarks written
+    as O (b, n, D) (head h in columns h*d..), then the out projection of
+    O + res with b_out and x added."""
+    b, n, dim = x.shape
+    strides = (n * dim, KERNEL_DIM_HEAD, dim)  # (batch, head, row) of a (b, n, D) buffer
+    q, o, y = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    parts.project_q(x, ln_weight, ln_bias, w_q, scale, q)
+    parts.query(q, k_lm, bmat, o, strides, n)
+    parts.project_out(o, res, x, w_out, b_out, y)
+    return y
 
 
 # --------------------------------------------------------------------- K1
@@ -121,8 +236,9 @@ def k1_reference(x, n_pad, ln_weight, ln_bias, w_kv, q_lm):
 
 
 def translayer_k1(x, n_pad, ln_weight, ln_bias, w_kv, q_lm):
-    """K1 (replaces ``_k1``): launches the CUDA kernel on CUDA tensors, runs
-    :func:`k1_reference` on CPU tensors."""
+    """K1 (replaces ``_k1``): launches the CUDA kernels on CUDA tensors
+    (:func:`_k1_stages`), runs :func:`k1_reference` on CPU tensors. The V it
+    returns is a view of the kernels' padded buffer."""
     if _on_cpu(x):
         return k1_reference(x, n_pad, ln_weight, ln_bias, w_kv, q_lm)
     _check_kernel_width(x)
@@ -136,25 +252,10 @@ def translayer_k1(x, n_pad, ln_weight, ln_bias, w_kv, q_lm):
     _check("q_lm", q_lm, (b, h, m, d), dev)
     if not 0 <= n_pad < m:
         raise ValueError(f"n_pad must be in [0, {m}), got {n_pad}")
-    lib = _library()
-    nchunks = lib.translayer_k1_chunks(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    attn3_v = torch.empty((b, h, m, d), **f32)
-    v = torch.empty((b, n, dim), **f32)
-    k_scratch = torch.empty((b, n, dim), **f32)
-    stats = torch.empty((b * n, 2), **f32)
-    part_acc = torch.empty((b, h, nchunks, m, d), **f32)
-    part_ml = torch.empty((b, h, nchunks, m, 2), **f32)
-    with torch.cuda.device(dev):
-        err = lib.translayer_k1(
-            x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w_kv.data_ptr(),
-            q_lm.data_ptr(), attn3_v.data_ptr(), v.data_ptr(), k_scratch.data_ptr(),
-            stats.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, n, n_pad,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error(lib, "translayer_k1", err)
+    _check_offsets(b * (n + n_pad))
+    out = _k1_stages(x, n_pad, ln_weight, ln_bias, w_kv, q_lm)
     LAUNCHES["translayer_k1"] += 1
-    return attn3_v, v
+    return out
 
 
 # --------------------------------------------------------------------- K2
@@ -172,8 +273,8 @@ def k2_reference(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, scal
 
 
 def translayer_k2(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, scale):
-    """K2 (replaces ``_k2``): launches the CUDA kernel on CUDA tensors, runs
-    :func:`k2_reference` on CPU tensors."""
+    """K2 (replaces ``_k2``): launches the CUDA kernels on CUDA tensors
+    (:func:`_k2_stages`), runs :func:`k2_reference` on CPU tensors."""
     if _on_cpu(x):
         return k2_reference(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, scale)
     _check_kernel_width(x)
@@ -189,16 +290,8 @@ def translayer_k2(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, sca
     _check("bmat", bmat, (b, h, m, d), dev)
     _check("w_out", w_out, (dim, dim), dev)
     _check("b_out", b_out, (dim,), dev)
-    lib = _library()
-    y = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        err = lib.translayer_k2(
-            x.data_ptr(), res.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-            w_q.data_ptr(), k_lm.data_ptr(), bmat.data_ptr(), w_out.data_ptr(),
-            b_out.data_ptr(), y.data_ptr(), b, n, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error(lib, "translayer_k2", err)
+    _check_offsets(b * n)
+    y = _k2_stages(x, res, ln_weight, ln_bias, w_q, k_lm, bmat, w_out, b_out, scale)
     LAUNCHES["translayer_k2"] += 1
     return y
 
