@@ -37,8 +37,19 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    the plain op, and times the kernels (per call, back to back, the host's
    enqueue and the device's time), their plain versions and the one PyTorch
    call that computes the same function, beside two bounds (split-TF32 tensor
-   cores, float32 SIMT);
-8. trains TransMIL-2048 with ``use_pallas=True`` through ``MILDataModule`` ->
+   cores, float32 SIMT); B5 also on a LayerNorm'd qkv (V's columns biased) at
+   both shapes, within 1e-4;
+8. serves through the port's entry points: ``cli.export_model`` writes a
+   TransMIL-2048 head bundle and an int8 slide bundle (224x224, chunk 128)
+   from .pth checkpoints, ``cli.serve``'s daemon answers /health, /predict
+   (a 12,000-tile bag, within 1e-5 of the bundle in-process), /predict_slide
+   (300 uint8 tiles, with and without attention, within 1e-3 of the pipeline
+   after the same bucket pad), sheds a burst past its queue with 503 +
+   Retry-After and counts it all in /metrics; ``cli.infer`` streams 2 slides x
+   256 JPEG tiles from disk (within 1e-3 and the same top-10 as
+   ``predict_slide_with_attention`` on the decoded tiles); exact launch counts
+   of B7/B8 and K1/K2 on every route; request ms, slide s, decode tiles/s;
+9. trains TransMIL-2048 with ``use_pallas=True`` through ``MILDataModule`` ->
    ``Trainer.fit`` (2 epochs of 32 synthetic 1,000-tile bags, lookahead_radam,
    grad_acc 2) and ``Trainer.test``, checks the launch counts of B5/B6 and
    K1/K2, holds 8 optimizer steps against the all-plain route, times the
@@ -101,6 +112,8 @@ TRAIN_EPOCHS = 2
 GRAD_ACC = 2
 PARITY_STEPS = 8  # optimizer steps held against the all-plain route
 BIG_BAG = 40960
+SERVE_BAG = 12000  # the /predict request of the serve phase
+DISK_TILES = 256  # JPEG tiles a slide on disk (two slides)
 
 
 def log(msg: str) -> None:
@@ -716,6 +729,295 @@ def phase_pipeline(rng, results: dict, dev, variables, tiles_u8, calib) -> None:
         raise AssertionError(f"int8 features too far from float32: cosine {cos.min()}")
 
 
+def torchvision_state_dict(variables) -> dict:
+    """Flax ResNet50 variables -> a torch state dict in torchvision's names
+    (the inverse of ``utils/torch_weights.convert_resnet_state_dict``)."""
+    from transmil_deepgraft_tpu_torch.utils.jax_params import resnet_state_dict_from_jax
+
+    out = {}
+    for key, value in resnet_state_dict_from_jax(variables).items():
+        if key.startswith("layer"):  # layer2_0.conv1.weight -> layer2.0.conv1.weight
+            block, rest = key.split(".", 1)
+            key = block.replace("_", ".") + "." + rest
+        out[key.replace("downsample_conv", "downsample.0").replace("downsample_bn",
+                                                                    "downsample.1")] = value
+    return out
+
+
+def http(port: int, method: str, path: str, body: bytes | None = None,
+         ctype: str = "application/octet-stream") -> tuple[int, dict, dict]:
+    """(status, JSON body, headers) of one request to the local daemon."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request(method, path, body=body, headers={"Content-Type": ctype} if body else {})
+    r = conn.getresponse()
+    raw = r.read()
+    conn.close()
+    doc = json.loads(raw) if r.getheader("Content-Type", "").startswith("application/json") else {
+        "text": raw.decode()}
+    return r.status, doc, dict(r.getheaders())
+
+
+def npy(arr) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def quiet(main, argv: list[str]):
+    """A CLI's ``main(argv)``, its printed JSON summary logged on one line
+    under ``[serve]`` (the last lines of this script's output stay its own)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = main(argv)
+    log(f"[serve] {main.__module__.rsplit('.', 1)[-1]}: {out.getvalue().strip()}")
+    return result
+
+
+def counted(run):
+    """(run's result, the launches of B7/B8 and K1/K2 during it): every
+    count is set to 0 just before and read just after."""
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+
+    qk.reset_launch_counts()
+    tk.reset_launch_counts()
+    out = run()
+    return out, {**qk.LAUNCHES, **tk.LAUNCHES}
+
+
+def expect_launches(route: str, got: dict, chunks: int, head_calls: int) -> None:
+    want = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks,
+            "translayer_k1": 2 * head_calls, "translayer_k2": 2 * head_calls}
+    log(f"[serve] {route}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{route}: expected launches {want}, got {got}")
+
+
+def phase_serve(rng, results: dict, dev, variables, tiles_u8, calib) -> None:
+    """The port's entry points at full width: ``cli.export_model`` writes a
+    TransMIL-2048 head bundle and an int8 slide bundle (224x224, chunk 128)
+    from .pth checkpoints; ``cli.serve``'s daemon answers /health, /predict
+    (a 12,000-tile bag), /predict_slide (300 uint8 tiles, with and without
+    attention), sheds a burst past its queue with 503 + Retry-After, and
+    /metrics; ``cli.infer`` streams 2 slides x 256 JPEG tiles from disk.
+    Each route is held to the in-process result and to exact launch counts
+    of B7/B8 and K1/K2."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from transmil_deepgraft_tpu_torch.cli import export_model, infer
+    from transmil_deepgraft_tpu_torch.cli.serve import make_server
+    from transmil_deepgraft_tpu_torch.data import native_tiles
+    from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize
+    from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.serving import ServingBundle
+    from transmil_deepgraft_tpu_torch.utils.jax_params import state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    head_params = random_transmil_params(rng, 2048, 2)
+    head_sd = state_dict_from_jax(head_params, 2048)  # the reference's TransMIL names
+
+    def head_model():
+        model = create_model("TransMIL", 2, 2048, device=dev)
+        model.load_state_dict(head_sd)
+        return model.eval()
+
+    buckets = ",".join(map(str, SMOKE_BUCKETS))
+    totals = {k: 0 for k in ("qstage_run", "qentry_run", "translayer_k1", "translayer_k2")}
+
+    def add(launches: dict) -> None:
+        for k in totals:
+            totals[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save(torchvision_state_dict(variables), tmp / "backbone.pth")
+        torch.save(head_sd, tmp / "head.pth")
+        np.save(tmp / "calib.npy", calib)
+        t0 = time.perf_counter()
+        quiet(export_model.main, ["--model", "TransMIL", "--ckpt", str(tmp / "head.pth"),
+                                  "--out", str(tmp / "head.tdx"), "--buckets", buckets])
+        quiet(export_model.main, ["--model", "TransMIL", "--ckpt", str(tmp / "head.pth"),
+                                  "--out", str(tmp / "slide.tdx"), "--backbone_ckpt",
+                                  str(tmp / "backbone.pth"), "--calib_tiles",
+                                  str(tmp / "calib.npy"), "--chunk", str(CHUNK), "--tile_hw",
+                                  str(TILE), "--buckets", buckets, "--device", str(dev)])
+        head_bundle = ServingBundle.load(tmp / "head.tdx", device=dev)
+        bundle = ServingBundle.load(tmp / "slide.tdx", device=dev)
+        log(f"[serve] cli.export_model (head bundle; int8 slide bundle calibrated on the card "
+            f"on {len(calib)} tiles) and both loads: {time.perf_counter() - t0:.2f} s, "
+            f"slide bundle {(tmp / 'slide.tdx').stat().st_size / 1e6:.1f} MB")
+
+        bag = rng.standard_normal((SERVE_BAG, 2048)).astype(np.float32)
+        slide = tiles_u8[:SLIDE_TILES]
+        chunks = -(-SLIDE_TILES // CHUNK)
+        want_logits = bundle.predict_logits(bag)  # in-process; also warms the bucket
+        np.testing.assert_allclose(head_bundle.predict_logits(bag), want_logits, atol=1e-6)
+        bundle.predict_slide(slide[:CHUNK])  # warm-up of the backbone, outside the counts
+
+        srv = make_server(bundle, "127.0.0.1", 0, max_queue=16)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        try:
+            status, doc, _ = http(port, "GET", "/health")
+            if status != 200 or doc["status"] != "ok":
+                raise AssertionError(f"/health: {status} {doc}")
+
+            body = npy(bag)
+            t0 = time.perf_counter()
+            (status, doc, _), launches = counted(lambda: http(port, "POST", "/predict", body))
+            request_ms = (time.perf_counter() - t0) * 1e3
+            err = float(np.abs(np.asarray(doc.get("logits")) - want_logits).max())
+            log(f"[serve] /predict, {SERVE_BAG} tiles x 2048 (.npy, {len(body) / 1e6:.1f} MB): "
+                f"{request_ms:.2f} ms, max|dlogit| vs in-process {err:.3e} (tol 1e-5)")
+            if status != 200 or not err <= 1e-5:
+                raise AssertionError(f"/predict: {status}, {err}")
+            expect_launches("/predict", launches, 0, 1)
+            add(launches)
+
+            body = npy(slide)
+            x = bundle.embed_tiles(slide)  # the yardstick: the same backbone, a fresh head
+            x = torch.nn.functional.pad(x, (0, 0, 0, bundle._pad_target(SLIDE_TILES) - SLIDE_TILES))
+            with torch.inference_mode():
+                want_probs = torch.softmax(head_model()(x[None]), -1).cpu().numpy()[0]
+            for attention in (True, False):
+                bundle.meta["attention"] = attention
+                t0 = time.perf_counter()
+                (status, doc, _), launches = counted(
+                    lambda: http(port, "POST", "/predict_slide", body))
+                slide_s = time.perf_counter() - t0
+                err = float(np.abs(np.asarray(doc.get("probs")) - want_probs).max())
+                log(f"[serve] /predict_slide, {SLIDE_TILES} uint8 tiles ({len(body) / 1e6:.1f} "
+                    f"MB), attention {attention}: {slide_s:.3f} s, max|dprob| vs the pipeline "
+                    f"after the same bucket pad {err:.3e} (tol {TOL}), top tiles "
+                    f"{doc.get('topk_tiles', [])[:5]}")
+                if status != 200 or not err <= TOL or ("topk_tiles" in doc) != attention:
+                    raise AssertionError(f"/predict_slide: {status} {err} {list(doc)}")
+                # return_attn runs the head's layers on their plain path, as in JAX
+                expect_launches(f"/predict_slide (attention {attention})", launches, chunks,
+                                0 if attention else 1)
+                add(launches)
+
+            # a burst past the queue bound: a slowed device (a sleep in the
+            # bundle's forward) and max_queue 1 in a second daemon
+            logits = bundle._logits
+
+            def slow(*args):
+                time.sleep(0.3)
+                return logits(*args)
+
+            bundle._logits = slow
+            small = npy(bag[:SMOKE_BUCKETS[0]])
+            shed = make_server(bundle, "127.0.0.1", 0, max_queue=1)
+            threading.Thread(target=shed.serve_forever, daemon=True).start()
+            try:
+                with ThreadPoolExecutor(max_workers=6) as ex:
+                    burst = list(ex.map(lambda _: http(shed.server_address[1], "POST",
+                                                       "/predict", small), range(6)))
+            finally:
+                shed.shutdown()
+                shed.server_close()
+                del bundle._logits
+            statuses = sorted(st for st, _, _ in burst)
+            retry = [int(h["Retry-After"]) for st, _, h in burst if st == 503]
+            log(f"[serve] burst of 6 at max_queue 1: statuses {statuses}, Retry-After {retry}")
+            if 200 not in statuses or 503 not in statuses or not all(r >= 1 for r in retry):
+                raise AssertionError(f"the burst was not shed: {statuses}")
+
+            status, doc, _ = http(port, "GET", "/metrics")
+            lines = [x for x in doc["text"].splitlines() if x.startswith("transmil_requests_total")]
+            log(f"[serve] /metrics: {lines}")
+            if status != 200 or not any('"/predict_slide",status="200"' in x for x in lines):
+                raise AssertionError("/metrics does not count the requests")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+
+        # the disk path: 2 slides x 256 JPEG tiles through cli.infer
+        root = tmp / "tiles"
+        paths = {}
+        for s_i, name in enumerate(("slideA", "slideB")):
+            (root / name).mkdir(parents=True)
+            paths[name] = []
+            for t_i in range(DISK_TILES):
+                tile = rng.integers(0, 256, (TILE, TILE, 3), dtype=np.uint8)
+                path = root / name / f"tile_({t_i % 16}-{t_i // 16}).jpg"
+                Image.fromarray(tile).save(path, quality=90)
+                paths[name].append(path)
+        t0 = time.perf_counter()
+        (results_cli, launches) = counted(lambda: quiet(infer.main, [
+            "--tiles_root", str(root), "--backbone_ckpt", str(tmp / "backbone.pth"),
+            "--head_ckpt", str(tmp / "head.pth"), "--quantize", "int8", "--chunk", str(CHUNK),
+            "--tile_size", str(TILE), "--topk", "10", "--out_dir", str(tmp / "out"),
+            "--device", str(dev)]))
+        infer_s = time.perf_counter() - t0
+        disk_chunks = 2 * -(-DISK_TILES // CHUNK)
+        expect_launches("cli.infer (2 slides, attention)", launches, disk_chunks, 0)
+        add(launches)
+
+        all_paths = paths["slideA"] + paths["slideB"]
+        decode_tile_paths(all_paths[:8], TILE)  # the loader's build, if any, outside the time
+        t0 = time.perf_counter()
+        decoded = decode_tile_paths(all_paths, TILE)
+        decode_s = time.perf_counter() - t0
+        ordered = sorted(paths["slideA"])  # cli.infer sorts a slide's tiles by name
+        calib_disk = imagenet_normalize(decode_tile_paths(ordered[:64], TILE))
+        pipe = SlideInferencePipeline(variables, head_model(), calib_tiles=calib_disk,
+                                      chunk=CHUNK, device=dev)
+        for s_i, (name, got) in enumerate(zip(("slideA", "slideB"), results_cli)):
+            order = sorted(range(DISK_TILES), key=lambda i: paths[name][i].name)
+            tiles = decoded[s_i * DISK_TILES:(s_i + 1) * DISK_TILES][order]
+            probs, scores = pipe.predict_slide_with_attention(tiles)
+            err = float(np.abs(np.asarray(got["probs"]) - probs).max())
+            top = [row.split(",")[0] for row in
+                   Path(got["topk_csv"]).read_text().splitlines()[1:]]
+            ranked = np.argsort(scores)[::-1]
+            names = [paths[name][order[i]].name for i in ranked[:10]]
+            ranked_scores = scores[ranked]
+            # a rank whose score is within 1e-4 of a neighbour's may swap
+            same = all(top[i] == names[i] for i in range(10)
+                       if min(ranked_scores[i - 1] - ranked_scores[i] if i else np.inf,
+                              ranked_scores[i] - ranked_scores[i + 1]) > 1e-4)
+            log(f"[serve] cli.infer {name}: probs {got['probs']}, max|dprob| vs "
+                f"predict_slide_with_attention on the decoded tiles {err:.3e} (tol {TOL}), "
+                f"top-10 {'the same' if same else 'DIFFERENT'}")
+            if not (err <= TOL and same):
+                raise AssertionError(f"cli.infer disagrees on {name}: {err}, {top} vs {names}")
+        _, launches = counted(lambda: [pipe.predict_slide_paths(sorted(paths[n]), tile_size=TILE)
+                                       for n in ("slideA", "slideB")])
+        expect_launches("predict_slide_paths (2 slides)", launches, disk_chunks, 2)
+        add(launches)
+        t0 = time.perf_counter()
+        for name in ("slideA", "slideB"):
+            pipe.predict_slide_paths(sorted(paths[name]), tile_size=TILE)
+        sync(dev)
+        paths_s = time.perf_counter() - t0
+    decoder = "native libjpeg" if native_tiles.available() else "PIL"
+    how = "tile by tile on one thread" if decoder == "PIL" else "the loader's thread pool"
+    log(f"[serve] disk path: decoder {decoder}, decode {len(all_paths) / decode_s:.1f} tiles/s "
+        f"({len(all_paths)} JPEG tiles of {TILE}x{TILE}, {how}), "
+        f"predict_slide_paths {2 / paths_s:.3f} slides/s of {DISK_TILES} tiles "
+        f"({paths_s / 2:.3f} s a slide), cli.infer {infer_s:.2f} s for 2 slides (calibration "
+        f"included)")
+    for name, count in totals.items():
+        results.setdefault(name, {})["launches"] = count
+    log(f"[serve] launches over the serve phase's routes: {totals}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def nystrom_costs(b: int, n: int, heads: int = 8, d: int = 64, m: int = 256) -> dict:
     """(float operations, least bytes) of each landmark kernel on one call:
     2 * 2 * m * n * d a head (scores and the weighted sum), every input read
@@ -739,6 +1041,20 @@ def nystrom_bounds(b: int, n: int, name: str) -> tuple[float, str, float]:
     flops, nbytes = nystrom_costs(b, n)[name]
     ms, by = bound(3 * flops, nbytes, H100_TF32_FLOPS)
     return ms, by, bound(flops, nbytes)[0]
+
+
+def layernormed_qkv(rng, b: int, n: int, dev, h: int = 8, d: int = 64):
+    """A packed (b, n, 3, h, d) qkv as a TransLayer makes it, LayerNorm rows
+    with a 0.5 * N(0, 1) bias a column (V's columns have a non-zero mean),
+    and the scaled q landmarks (segment means of the q plane)."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(dev)
+    bias = torch.from_numpy((0.5 * rng.standard_normal(3 * h * d)).astype(np.float32)).to(dev)
+    qkv = torch.nn.functional.layer_norm(x, (3 * h * d,), None, bias).view(b, n, 3, h, d)
+    q = qkv[:, :, 0].transpose(1, 2)
+    return qkv, (q.reshape(b, h, 256, n // 256, d).mean(3) * d ** -0.5).contiguous()
 
 
 def phase_nystrom(rng, results: dict, dev) -> None:
@@ -814,6 +1130,16 @@ def phase_nystrom(rng, results: dict, dev) -> None:
                         f"a call, {library_b2b:.4f} back to back, host {host_us(library):.1f} us + "
                         f"device {device_us(library):.1f} us; bound {bound_ms:.4f} ms ({by}, "
                         f"split TF32), float32 SIMT {simt_ms:.4f}")
+        # B5 on a LayerNorm'd qkv: V's columns carry a 0.5 * N(0, 1) bias, so
+        # a long key split is where truncating accumulation would show
+        for b, n in ((1, BIG_N), (2, TRAIN_N)):
+            qkv, q_lm = layernormed_qkv(rng, b, n, dev)
+            k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
+            worst["nystrom_landmark_attn"] = max(worst["nystrom_landmark_attn"], check(
+                f"B5 (nystrom_landmark_attn) b={b} n={n}, LayerNorm'd qkv (biased V)",
+                nk.landmark_attention_packed(q_lm, qkv), nk.landmark_attention_reference(q_lm, k, v),
+                SPLIT_TOL))
+            del qkv, q_lm, k, v
         # B3/B4 at a ragged n
         b, n = 2, RAGGED_N
         q_lm, k, v = t(b * h, m, d, scale=0.125), t(b * h, n, d), t(b * h, n, d)
@@ -1020,8 +1346,9 @@ def main() -> int:
     log(f"[env] int8 embed phases {time.perf_counter() - t_new:.1f} s")
     t_new = time.perf_counter()
     phase_nystrom(rng, results, dev)
+    phase_serve(rng, results, dev, variables, tiles_u8, calib)
     phase_train(results, dev)
-    log(f"[env] training phases {time.perf_counter() - t_new:.1f} s")
+    log(f"[env] Nystrom, serve and training phases {time.perf_counter() - t_new:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

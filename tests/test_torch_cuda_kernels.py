@@ -237,6 +237,35 @@ def test_nystrom_kernels_match_plain_versions(cuda_device, form, b, n):
     assert nk.LAUNCHES == {"nystrom_landmark_attn": 2, "nystrom_query_lm": 1}
 
 
+def layernormed_qkv(rng, b: int, n: int, device, h: int = 8, d: int = 64):
+    """A packed (b, n, 3, h, d) qkv as a TransLayer makes it: LayerNorm rows
+    whose bias is 0.5 * N(0, 1) per column, so V's columns have a non-zero
+    mean; and the scaled q landmarks (segment means of the q plane)."""
+    x = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(device)
+    bias = torch.from_numpy((0.5 * rng.standard_normal(3 * h * d)).astype(np.float32)).to(device)
+    qkv = torch.nn.functional.layer_norm(x, (3 * h * d,), None, bias).view(b, n, 3, h, d)
+    q = qkv[:, :, 0].transpose(1, 2)
+    q_lm = (q.reshape(b, h, 256, n // 256, d).mean(3) * d ** -0.5).contiguous()
+    return qkv, q_lm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 41472), (2, 1280)], ids=["bag-41472", "train-1280"])
+def test_landmark_kernel_holds_long_splits_with_biased_values(cuda_device, b, n):
+    """B5 on a LayerNorm'd qkv (V's columns carry a 0.5 * N(0, 1) bias) at a
+    40,960-tile bag (81 key tiles a split on 132 SMs) and at the training
+    shape: within 1e-4 of the plain version. Accumulating P V onto the
+    running sum on the tensor cores, which truncate, was off by 1.9e-4 at
+    n = 41,472 on an H100."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, q_lm = layernormed_qkv(np.random.default_rng(7), b, n, cuda_device)
+    got = nk.landmark_attention_packed(q_lm, qkv)
+    torch.cuda.synchronize()
+    k, v = qkv[:, :, 1].transpose(1, 2), qkv[:, :, 2].transpose(1, 2)
+    want = nk.landmark_attention_reference(q_lm, k, v)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 def test_nystrom_landmark_launcher_refuses_a_bad_plan(cuda_device):
     """The landmark kernel's C launcher checks the plan it is given: a split

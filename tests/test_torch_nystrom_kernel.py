@@ -122,23 +122,20 @@ def test_wrappers_refuse_other_devices():
         tnk.landmark_attention(q_lm, k, v)
 
 
-@pytest.mark.parametrize("bh,n,max_per", [(16, 1280, None), (8, 41472, None), (16, 1000, None),
-                                          (1, 1, None), (3, 64, None), (8, 65, None),
-                                          (1, 100_000, None), (8, 65792, 8), (16, 3256, 8),
-                                          (8, 65, 1)])
-def test_grid_plans_cover_every_key_and_row_once(bh, n, max_per):
+@pytest.mark.parametrize("bh,n", [(16, 1280), (8, 41472), (16, 1000), (1, 1), (3, 64), (8, 65),
+                                  (1, 100_000), (8, 65792), (16, 3256)])
+def test_grid_plans_cover_every_key_and_row_once(bh, n):
     """The wrappers' grid plans, read as csrc/nystrom.cu reads them: the
-    landmark kernel's splits take every 64-key tile once and none is empty,
-    none longer than ``max_per`` tiles (TransLayer K1's cap, here at the
-    40,960-tile request's layer and at b 2, n 3,000); the query kernel's
-    blocks take every 128-row tile of every head once. On 132 SMs the
-    training shape (b 2 x 8 heads, n = 1,280) and a 40,960-tile bag (b 1,
-    n = 41,472) give the grids the source's note states."""
+    landmark kernel's splits take every 64-key tile once and none is empty
+    (also at the 40,960-tile request's layer, b 8 x n 65,792, and at b 2,
+    n 3,000); the query kernel's blocks take every 128-row tile of every
+    head once. On 132 SMs the training shape (b 2 x 8 heads, n = 1,280)
+    and a 40,960-tile bag (b 1, n = 41,472) give the grids the source's
+    note states."""
     sms = 132
-    per, splits = tnk.landmark_plan(bh, n, sms, max_per)
+    per, splits = tnk.landmark_plan(bh, n, sms)
     tiles = -(-n // tnk.KEY_TILE)
     assert per >= 1 and splits >= 1
-    assert max_per is None or per <= max_per
     covered = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, tiles))]
     assert covered == list(range(tiles))
     assert all(s * per < tiles for s in range(splits))  # no split without keys

@@ -93,6 +93,28 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
         ServingBundle.load(tmp_path / "b.tdx")
     assert ServingBundle.load(tmp_path / "b.tdx", device="cpu").device.type == "cpu"
 
+    # a slide bundle (bf16: no calibration; the ResNet50 cut after layer1,
+    # 256-d features), the daemon and the slide CLI
+    import chip_smoke
+    from transmil_deepgraft_tpu_torch.cli import infer, serve
+    from transmil_deepgraft_tpu_torch.serving import export_slide_bundle
+
+    head = create_model("TransMIL", 2, 256, device="cpu").state_dict()
+    head_params = convert_transmil_state_dict(head, 256)["params"]
+    backbone = chip_smoke.random_resnet50_variables(rng)
+    export_slide_bundle(backbone, head_params, tmp_path / "s.tdx", model_name="TransMIL",
+                        in_features=256, n_classes=2, chunk=2, tile_hw=32, truncate_after=1)
+    with pytest.raises(ValueError, match="in_features=384"):
+        export_slide_bundle(backbone, head_params, tmp_path / "x.tdx", model_name="TransMIL",
+                            in_features=384, n_classes=2, truncate_after=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingBundle.load(tmp_path / "s.tdx")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--bundle", str(tmp_path / "b.tdx"), "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.main(["--tiles_root", str(tmp_path), "--backbone_ckpt", "bb.pth",
+                    "--head_ckpt", "head.pth", "--out_dir", str(tmp_path / "out")])
+
 
 @pytest.mark.parametrize("alone", [False, True], ids=["no_card", "script_alone"])
 def test_chip_smoke_fails_without_a_card_or_the_port(alone, tmp_path):

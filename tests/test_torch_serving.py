@@ -226,8 +226,9 @@ def test_loads_a_bundle_the_jax_package_exported(params, tmp_path):
 
 
 def test_flax_msgpack_reader_refuses_what_it_does_not_know():
-    """Everything flax writes for a params tree decodes to numpy; an unknown
-    ExtType, bfloat16 arrays and stray bytes raise ValueError."""
+    """Everything flax writes for a params tree decodes to numpy, bfloat16
+    arrays to torch.bfloat16 with the same bits; an unknown ExtType, chunked
+    leaves and stray bytes raise ValueError."""
     import jax.numpy as jnp
     from flax import serialization
 
@@ -244,7 +245,12 @@ def test_flax_msgpack_reader_refuses_what_it_does_not_know():
     unknown_ext = b"\x81\xa1a\xd4\x07\x00"  # {"a": fixext1 of type 7}
     with pytest.raises(ValueError, match="ExtType 7"):
         read_flax_msgpack(unknown_ext)
-    with pytest.raises(ValueError, match="bfloat16"):
-        read_flax_msgpack(serialization.msgpack_serialize({"w": jnp.ones((2,), jnp.bfloat16)}))
+    w = jnp.asarray([1.0, -2.5, 3.1415, 1e-3], jnp.bfloat16).reshape(2, 2)
+    got_w = read_flax_msgpack(serialization.msgpack_serialize({"w": w}))["w"]
+    assert got_w.dtype == torch.bfloat16 and tuple(got_w.shape) == (2, 2)
+    np.testing.assert_array_equal(got_w.float().numpy(), np.asarray(w.astype(jnp.float32)))
+    chunked = b"\x81\xb9__msgpack_chunked_array__\xc3"  # {"__msgpack_chunked_array__": True}
+    with pytest.raises(ValueError, match="chunked"):
+        read_flax_msgpack(chunked)
     with pytest.raises(ValueError, match="trailing"):
         read_flax_msgpack(serialization.msgpack_serialize({"w": 1}) + b"\x00")

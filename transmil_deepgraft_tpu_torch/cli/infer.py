@@ -1,0 +1,125 @@
+"""Slide inference CLI (port of ``cli/infer.py``):
+``python -m transmil_deepgraft_tpu_torch.cli.infer``.
+
+A folder of slide tile folders streams from disk through the int8 (or bf16)
+ResNet50 and the TransMIL head of ``inference.SlideInferencePipeline`` on the
+card (``--device cpu`` for the CPU) and writes each slide's probabilities
+plus its top-k tiles by attention.
+
+Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
+port's trainer checkpoints) converted by ``utils/torch_weights``, or flax
+msgpack variable trees."""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+from pathlib import Path
+
+import numpy as np
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="slide inference (tiles -> probabilities)")
+    p.add_argument("--tiles_root", required=True,
+                   help="root holding <slide>/<tile_(x-y)>.jpg folders")
+    p.add_argument("--backbone_ckpt", required=True,
+                   help="ResNet50/RetCCL weights: flax msgpack or torch .pth")
+    p.add_argument("--head_ckpt", required=True,
+                   help="TransMIL head weights: flax msgpack or torch .pth")
+    p.add_argument("--model", default="TransMIL",
+                   help="head name; the port has TransMIL")
+    p.add_argument("--n_classes", type=int, default=2)
+    p.add_argument("--in_features", type=int, default=2048)
+    p.add_argument("--out_features", type=int, default=512)
+    p.add_argument("--quantize", choices=["bf16", "int8", "int8_fused"], default="int8")
+    p.add_argument("--chunk", type=int, default=128)
+    p.add_argument("--tile_size", type=int, default=224)
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--out_dir", default="inference_out")
+    p.add_argument("--n_chips", type=int, default=1,
+                   help="devices for a tile-parallel embed; the port runs on one")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the plain versions)")
+    return p
+
+
+def main(argv: list[str] | None = None) -> list[dict]:
+    from transmil_deepgraft_tpu_torch.data import native_tiles
+    from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
+    from transmil_deepgraft_tpu_torch.device import resolve_device
+    from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.utils.jax_params import state_dict_from_jax
+    from transmil_deepgraft_tpu_torch.utils.torch_weights import (
+        load_backbone_variables, load_head_params)
+
+    args = make_parser().parse_args(argv)
+    if args.model != "TransMIL":
+        raise SystemExit(f"--model {args.model}: the port serves TransMIL; the other heads "
+                         "come with ROADMAP queue A item 7")
+    if args.n_chips > 1:
+        raise SystemExit("--n_chips > 1: the multi-device embed comes with ROADMAP queue A "
+                         "item 10")
+    device = resolve_device(args.device)  # before any weights are read
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    bb_vars = load_backbone_variables(args.backbone_ckpt)
+    head = create_model(args.model, args.n_classes, args.in_features, args.out_features,
+                        device=device)
+    head.load_state_dict(state_dict_from_jax(load_head_params(args.head_ckpt, args.in_features),
+                                             args.in_features))
+
+    root = Path(args.tiles_root)
+    slides = sorted(d for d in root.iterdir() if d.is_dir())
+    if not slides:
+        raise SystemExit(f"no slide folders under {root}")
+
+    pipeline = None
+    results = []
+    for slide_dir in slides:
+        tile_paths = sorted(slide_dir.glob("*.jpg")) + sorted(slide_dir.glob("*.png"))
+        if not tile_paths:
+            continue
+        if pipeline is None:
+            # int8 calibration on the first slide's first 64 tiles (the only
+            # tiles decoded up front; slides stream from disk)
+            calib = None
+            if args.quantize != "bf16":
+                calib = imagenet_normalize(
+                    decode_tile_paths(tile_paths[:min(64, len(tile_paths))], args.tile_size))
+            pipeline = SlideInferencePipeline(
+                bb_vars, head, calib_tiles=calib, chunk=args.chunk,
+                fused_backbone=args.quantize == "int8_fused", device=device,
+            )
+        probs, attn = pipeline.predict_slide_paths_with_attention(
+            tile_paths, tile_size=args.tile_size
+        )
+        order = np.argsort(attn)[::-1][:args.topk]
+        topk_csv = out_dir / f"{slide_dir.name}_topk_tiles.csv"
+        with open(topk_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["tile", "x", "y", "attention"])
+            for i in order:
+                x, y = parse_coords(tile_paths[i].name)
+                w.writerow([tile_paths[i].name, x, y, float(attn[i])])
+        results.append(
+            {
+                "slide": slide_dir.name,
+                "n_tiles": len(tile_paths),
+                "probs": [float(p) for p in probs],
+                "pred": int(np.argmax(probs)),
+                "topk_csv": str(topk_csv),
+            }
+        )
+
+    (out_dir / "predictions.json").write_text(json.dumps(results, indent=2))
+    decoder = "native libjpeg" if native_tiles.available() else "PIL"
+    print(json.dumps({"slides": len(results), "out_dir": str(out_dir), "decoder": decoder}))
+    return results
+
+
+if __name__ == "__main__":
+    main()

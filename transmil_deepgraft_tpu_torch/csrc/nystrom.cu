@@ -60,7 +60,12 @@
 // * nystrom_landmark_attn: one launch. Grid (4 row tiles of 64 landmarks,
 //   splits, b*h), 4 warps a block, each block holding its own 64 q_lm rows as
 //   split A fragments in registers and walking its split of 64-key K/V tiles
-//   through a two-stage cp.async ring (71,680 bytes). 193 registers: two
+//   through a two-stage cp.async ring (71,680 bytes). Each key tile's P V
+//   goes into a zeroed accumulator that is added to the running sum with
+//   FFMA: the tensor cores truncate as they accumulate, and V's columns carry
+//   the LayerNorm bias, so accumulating onto the running sum lost accuracy
+//   with the keys a split sums (1.9e-4 at 81 tiles a split on an H100, 1.7e-5
+//   this way, at ~4% of the kernel's time). 223 registers, no spills: two
 //   blocks an SM (capped at 168 registers for three, it spilled and ran
 //   slower on the H100).
 //   With one split a block normalises and writes its rows. Otherwise each
@@ -170,12 +175,37 @@ __device__ __forceinline__ void load_a(const float* rows, int ld, int g, int t,
   }
 }
 
+// acc += P Y over one 64-wide chunk: the score fragment s (the softmax's
+// numerators) as the A operand, k order permuted, Y staged at pitch LDY.
+__device__ __forceinline__ void weighted_sum(const float (&s)[8][4], const float* Y, int g, int t,
+                                             float (&acc)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 8; ++kk) {
+    // the C fragment of columns kk*8.. as the A fragment, k order permuted
+    uint32_t ph[4], pl[4];
+    split(s[kk][0], ph[0], pl[0]);
+    split(s[kk][2], ph[1], pl[1]);
+    split(s[kk][1], ph[2], pl[2]);
+    split(s[kk][3], ph[3], pl[3]);
+    const float* y = Y + (kk * 8 + 2 * t) * LDY + g;  // B rows 2t and 2t + 1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) mma3(acc[nt], ph, pl, y[nt * 8], y[LDY + nt * 8]);
+  }
+}
+
 // One 64-wide softmax step of a warp's 16 query rows against 64 operand rows
 // (landmarks or keys), X staged at pitch LDX and Y at LDY: s = A X^T, online
 // softmax into (m, l), o = o * alpha + P Y. keys_left masks columns at or
 // beyond it.
 // Rows g and g + 8 of the warp are (m[0], l[0]) and (m[1], l[1]); o[nt] holds
 // output columns nt*8 + 2t, +1 of both.
+// FRESH sums the chunk's P Y in a zeroed accumulator and adds it to o with
+// FFMA (round to nearest). Without it the tensor cores add P Y onto o, and
+// they truncate as they accumulate: where Y's columns share a non-zero mean
+// (V carries LN(x)'s bias) o grows with every key and the truncation error
+// with it. The landmark kernel sums up to n keys a split, so it takes FRESH;
+// the query kernel sums 256 landmarks.
+template <bool FRESH>
 __device__ __forceinline__ void attend_chunk(const uint32_t (&ah)[8][4], const uint32_t (&al)[8][4],
                                              const float* X, const float* Y, int keys_left, int g,
                                              int t, float (&m)[2], float (&l)[2],
@@ -221,24 +251,29 @@ __device__ __forceinline__ void attend_chunk(const uint32_t (&ah)[8][4], const u
     s[nt][3] = expf(s[nt][3] - mx1);
     ps0 += s[nt][0] + s[nt][1];
     ps1 += s[nt][2] + s[nt][3];
-    o[nt][0] *= alpha0;
-    o[nt][1] *= alpha0;
-    o[nt][2] *= alpha1;
-    o[nt][3] *= alpha1;
+    if constexpr (!FRESH) {
+      o[nt][0] *= alpha0;
+      o[nt][1] *= alpha0;
+      o[nt][2] *= alpha1;
+      o[nt][3] *= alpha1;
+    }
   }
   l[0] = l[0] * alpha0 + ps0;  // this lane's share; the quad is summed at the end
   l[1] = l[1] * alpha1 + ps1;
+  if constexpr (FRESH) {
+    float d[8][4];
 #pragma unroll
-  for (int kk = 0; kk < CHUNK / 8; ++kk) {
-    // the C fragment of columns kk*8.. as the A fragment, k order permuted
-    uint32_t ph[4], pl[4];
-    split(s[kk][0], ph[0], pl[0]);
-    split(s[kk][2], ph[1], pl[1]);
-    split(s[kk][1], ph[2], pl[2]);
-    split(s[kk][3], ph[3], pl[3]);
-    const float* y = Y + (kk * 8 + 2 * t) * LDY + g;  // B rows 2t and 2t + 1
+    for (int nt = 0; nt < 8; ++nt) d[nt][0] = d[nt][1] = d[nt][2] = d[nt][3] = 0.f;
+    weighted_sum(s, Y, g, t, d);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) mma3(o[nt], ph, pl, y[nt * 8], y[LDY + nt * 8]);
+    for (int nt = 0; nt < 8; ++nt) {
+      o[nt][0] = fmaf(o[nt][0], alpha0, d[nt][0]);
+      o[nt][1] = fmaf(o[nt][1], alpha0, d[nt][1]);
+      o[nt][2] = fmaf(o[nt][2], alpha1, d[nt][2]);
+      o[nt][3] = fmaf(o[nt][3], alpha1, d[nt][3]);
+    }
+  } else {
+    weighted_sum(s, Y, g, t, o);
   }
 }
 
@@ -315,7 +350,7 @@ __global__ void __launch_bounds__(LM_THREADS, LM_MIN_BLOCKS) landmark_attn_kerne
       cp_async_commit();
     }
     const float* Ks = smem + (i & 1) * LM_STAGE;
-    attend_chunk(qh, ql, Ks, Ks + KT * LDX, n - ti * KT, g, t, m, l, o);
+    attend_chunk<true>(qh, ql, Ks, Ks + KT * LDX, n - ti * KT, g, t, m, l, o);
   }
   finish_sums(l);
 
@@ -447,7 +482,7 @@ __global__ void __launch_bounds__(Q_THREADS, 1) query_lm_kernel(
     for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 #pragma unroll 1
     for (int c = 0; c < LM; c += CHUNK)
-      attend_chunk(qh, ql, Ks + c * LDX, Bs + c * LDY, CHUNK, g, t, m, l, o);
+      attend_chunk<false>(qh, ql, Ks + c * LDX, Bs + c * LDY, CHUNK, g, t, m, l, o);
     finish_sums(l);
 
     const int r = row0 + warp * 16 + g;  // rows at or beyond n are never written

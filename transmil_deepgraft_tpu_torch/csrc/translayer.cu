@@ -55,9 +55,6 @@
 //   row n_pad + m % n); y = acc + b_out + x. The ragged last row tile is
 //   zero-filled on load and masked on store.
 // * offsets are 32-bit: the launchers refuse buffers of 2^31 floats or more.
-// * K1's landmark attention sums at most 8 key tiles a split (the wrapper's
-//   K1_SPLIT_TILES): the tensor cores truncate as they accumulate, and V's
-//   columns carry the LayerNorm bias, so longer splits lose accuracy.
 // What holds it (an H100, PERF.md): the GEMM reaches ~65% of the wgmma TF32
 // rate for the LayerNorm modes and ~43% for the out projection. Without any
 // load the loop's structure (a barrier and a wait a K tile) stays at ~75%;

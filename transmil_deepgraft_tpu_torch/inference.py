@@ -7,23 +7,52 @@ and the bag goes through the head (the port's TransMIL, whose TransLayers run
 the K1/K2 kernels at inference). On a CUDA device the backbone's bottleneck
 stages run the int8 stage/entry kernels (``ops/qstage_kernel``).
 
-Left for later slices: decoding tiles from disk (``decode_tile_paths``,
-``embed_paths_device``, ``predict_slide_paths*``), the multi-device ``mesh``
-and coord-aware heads.
+Tiles come as arrays (``predict_slide*``) or as image files streamed from
+disk (``predict_slide_paths*``): the next chunk decodes on a host thread
+while this one embeds on the device.
+
+Left for later slices: the multi-device ``mesh`` and coord-aware heads (the
+``coords`` arguments are accepted and, as in the JAX package for a head that
+is not coord-aware, not used).
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD, _load_tile
 from transmil_deepgraft_tpu_torch.device import resolve_device
 
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+def decode_tile_paths(paths, size: int = 224, scaled_dct: bool = True) -> np.ndarray:
+    """Decode a chunk of tile image paths -> raw (n, size, size, 3) uint8.
+
+    An all-JPEG chunk goes through the native threaded loader
+    (``data/native_tiles``) when it is available; anything else (PNGs, a
+    tile that fails to decode, no loader) decodes tile by tile with PIL.
+    ``scaled_dct`` decodes JPEG sources of at least 2x ``size`` at a reduced
+    DCT scale (sources under 2x decode the same either way). Normalization
+    happens on the device."""
+    from transmil_deepgraft_tpu_torch.data import native_tiles as nt
+
+    if nt.available() and all(str(p).lower().endswith((".jpg", ".jpeg")) for p in paths):
+        batch, n_ok = nt.load_tiles_u8(paths, size, scaled_dct=scaled_dct)
+        if n_ok == len(paths):
+            return batch
+    return np.stack([_load_tile(p, size) for p in paths])
+
+
+def _pad_chunk(batch: np.ndarray, chunk: int) -> np.ndarray:
+    """Zero-pad a short last batch to ``chunk`` tiles."""
+    pad = chunk - batch.shape[0]
+    if pad:
+        batch = np.concatenate([batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
+    return batch
 
 
 def chunked_device_embed(
@@ -34,14 +63,20 @@ def chunked_device_embed(
     n = tiles.shape[0]
     if n == 0:
         raise ValueError("empty tile batch")
-    outs = []
-    for start in range(0, n, chunk):
-        batch = tiles[start:start + chunk]
-        pad = chunk - batch.shape[0]
-        if pad:
-            batch = np.concatenate([batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
-        outs.append(call(batch))
+    outs = [call(_pad_chunk(tiles[start:start + chunk], chunk)) for start in range(0, n, chunk)]
     return torch.cat(outs, dim=0)[:n] if len(outs) > 1 else outs[0][:n]
+
+
+def embed_chunk(core: Callable[[torch.Tensor], torch.Tensor], batch: np.ndarray,
+                mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """One host chunk -> (chunk, D) float32 features from the backbone
+    ``core`` on the device of ``mean``. Raw uint8 tiles ship 4x fewer bytes
+    and are ImageNet-normalized on the device (``mean``, ``std``)."""
+    x = torch.from_numpy(np.ascontiguousarray(batch)).to(mean.device)
+    if x.dtype == torch.uint8:
+        x = (x.float() / 255.0 - mean) / std
+    with torch.inference_mode():
+        return core(x)
 
 
 class SlideInferencePipeline:
@@ -52,6 +87,7 @@ class SlideInferencePipeline:
         layout (numpy leaves), e.g. converted from ``retccl_best_ckpt.pth``.
       head_model: the bag-level head, an ``nn.Module`` with its weights (the
         port's TransMIL); it is moved to the device and put in eval mode.
+        Coord-aware heads are not ported yet and are refused.
       calib_tiles: representative tiles for int8 activation calibration;
         None runs the backbone in bf16 instead.
       chunk: tile batch per backbone call.
@@ -75,6 +111,8 @@ class SlideInferencePipeline:
         fused_t_cfg: tuple = (1, 2, 4, 4, 4, 4, 4),
         device: str | torch.device | None = None,
     ) -> None:
+        if getattr(head_model, "coord_aware", False):
+            raise ValueError("coord-aware heads are not ported yet")
         self.device = resolve_device(device)
         self.head = head_model.to(self.device).eval()
         self.chunk = chunk
@@ -108,13 +146,7 @@ class SlideInferencePipeline:
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
     def _embed_chunk(self, batch: np.ndarray) -> torch.Tensor:
-        """One host chunk -> (chunk, D) float32 features on the device. Raw
-        uint8 tiles ship 4x fewer bytes and are normalized on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-        if x.dtype == torch.uint8:
-            x = (x.float() / 255.0 - self._mean) / self._std
-        with torch.inference_mode():
-            return self._embed_core(x)
+        return embed_chunk(self._embed_core, batch, self._mean, self._std)
 
     def embed(self, tiles: np.ndarray) -> np.ndarray:
         """Chunked tile embedding -> (N, D) float32 features on the host.
@@ -126,17 +158,55 @@ class SlideInferencePipeline:
         device, for the head to consume without a round trip."""
         return chunked_device_embed(self._embed_chunk, tiles, self.chunk)
 
-    def predict_slide(self, tiles: np.ndarray) -> np.ndarray:
+    def embed_paths_device(self, paths, *, tile_size: int = 224) -> torch.Tensor:
+        """Tile image paths -> (N, D) float32 features on the device,
+        streamed: the next chunk decodes on a host thread while this chunk
+        embeds, so the host holds at most two decoded chunks. The last chunk
+        is zero-padded; features concatenate on the device."""
+        n = len(paths)
+        if n == 0:
+            raise ValueError("empty tile path list")
+        chunks = [paths[i:i + self.chunk] for i in range(0, n, self.chunk)]
+        outs = []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(decode_tile_paths, chunks[0], tile_size)
+            for ci in range(len(chunks)):
+                batch = fut.result()
+                if ci + 1 < len(chunks):  # decode the next chunk during this embed
+                    fut = pool.submit(decode_tile_paths, chunks[ci + 1], tile_size)
+                outs.append(self._embed_chunk(_pad_chunk(batch, self.chunk)))
+        return torch.cat(outs, dim=0)[:n] if len(outs) > 1 else outs[0][:n]
+
+    def predict_slide_paths(self, paths, coords: Optional[np.ndarray] = None, *,
+                            tile_size: int = 224) -> np.ndarray:
+        """Tile image paths on disk -> (C,) slide probabilities, streamed
+        (see :meth:`embed_paths_device`)."""
+        return self._probs(self.embed_paths_device(paths, tile_size=tile_size))
+
+    def predict_slide_paths_with_attention(
+        self, paths, coords: Optional[np.ndarray] = None, *, tile_size: int = 224
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Streamed :meth:`predict_slide_with_attention`."""
+        feats = self.embed_paths_device(paths, tile_size=tile_size)
+        return self._attention_from_feats(feats, len(paths))
+
+    def predict_slide(self, tiles: np.ndarray, coords: Optional[np.ndarray] = None) -> np.ndarray:
         """(N, H, W, 3) tiles -> (C,) slide class probabilities."""
-        feats = self.embed_device(tiles)
+        return self._probs(self.embed_device(tiles))
+
+    def predict_slide_with_attention(
+        self, tiles: np.ndarray, coords: Optional[np.ndarray] = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (probs (C,), per-tile attention scores (N,))."""
+        return self._attention_from_feats(self.embed_device(tiles), len(tiles))
+
+    def _probs(self, feats: torch.Tensor) -> np.ndarray:
         with torch.inference_mode():
             probs = torch.softmax(self.head(feats[None]), dim=-1)
         return probs.cpu().numpy()[0]
 
-    def predict_slide_with_attention(self, tiles: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Returns (probs (C,), per-tile attention scores (N,))."""
-        n_tiles = len(tiles)
-        feats = self.embed_device(tiles)
+    def _attention_from_feats(self, feats: torch.Tensor,
+                              n_tiles: int) -> tuple[np.ndarray, np.ndarray]:
         with torch.inference_mode():
             logits, attn = self.head(feats[None], return_attn=True)
             probs = torch.softmax(logits, dim=-1).cpu().numpy()[0]

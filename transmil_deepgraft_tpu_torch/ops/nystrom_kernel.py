@@ -97,19 +97,18 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def landmark_plan(bh: int, n: int, sms: int, max_per: int | None = None) -> tuple[int, int]:
+def landmark_plan(bh: int, n: int, sms: int) -> tuple[int, int]:
     """(key tiles a split, splits) of the landmark kernel for b*h heads of n
     keys on ``sms`` SMs. Split s takes the 64-key tiles
     [s * per, min((s + 1) * per, ceil(n / 64))); the grid is
     (4, splits, b*h). The fewest tiles a split that still give about
-    LANDMARK_BLOCKS_PER_SM blocks an SM, and at most ``max_per``; every split
-    holds at least one tile."""
+    LANDMARK_BLOCKS_PER_SM blocks an SM; every split holds at least one tile.
+    A split's length does not bound its accuracy: the kernel sums each key
+    tile's products in a fresh accumulator."""
     tiles = -(-n // KEY_TILE)
     row_tiles = bh * (KERNEL_LANDMARKS // LANDMARK_ROWS)
     want = max(1, LANDMARK_BLOCKS_PER_SM * sms // row_tiles)
     per = -(-tiles // want)
-    if max_per is not None:
-        per = min(per, max_per)
     return per, -(-tiles // per)
 
 
@@ -218,18 +217,17 @@ def query_landmark_attention_reference(q: torch.Tensor, k_lm: torch.Tensor,
 
 # ------------------------------------------------------- kernel launches
 
-def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n, max_split_tiles=None):
+def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n):
     """B5/B3's kernel, uncounted: q_lm (batch, heads, m, d); k and v read from
     ``k_ptr``/``v_ptr`` at ``k_strides`` (batch, head, row), in floats ->
-    (batch, heads, m, d), with at most ``max_split_tiles`` key tiles a split
-    if given. The caller has checked k and v. The TransLayer kernels
-    (``translayer_kernel``) launch it through here and count their own
-    calls."""
+    (batch, heads, m, d). The caller has checked k and v. The TransLayer
+    kernels (``translayer_kernel``) launch it through here and count their
+    own calls."""
     dev = q_lm.device
     _check_landmarks("q_lm", q_lm, batch, heads, dev)
     _check_length(n)
     bh = batch * heads
-    per, splits = landmark_plan(bh, n, _sm_count(dev.index), max_split_tiles)
+    per, splits = landmark_plan(bh, n, _sm_count(dev.index))
     stream = _stream(dev)
     out = torch.empty((batch, heads, KERNEL_LANDMARKS, KERNEL_DIM_HEAD), dtype=torch.float32,
                       device=dev)

@@ -53,10 +53,6 @@ from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv
 LN_EPS = 1e-5
 # The only shape the kernels are built for: the model the repository ships.
 KERNEL_DIM, KERNEL_HEADS, KERNEL_DIM_HEAD, KERNEL_LANDMARKS = 512, 8, 64, 256
-# Key tiles (of 64) a split of the landmark kernel in K1, at most. The tensor
-# cores truncate as they accumulate, so the landmark kernel's error grows with
-# the keys a split sums; V's columns carry LN(x)'s bias and do not cancel.
-K1_SPLIT_TILES = 8
 # The kernels address buffers with 32-bit offsets.
 OFFSET_LIMIT = 2**31
 
@@ -160,8 +156,7 @@ def _kv_projection(x, ln_weight, ln_bias, w_kv, kv, n_pad):
 
 def _landmark(q_lm, k, v, strides, keys):
     b, h = q_lm.shape[:2]
-    return nk.landmark_launch(q_lm, k.data_ptr(), v.data_ptr(), strides, b, h, keys,
-                              K1_SPLIT_TILES)
+    return nk.landmark_launch(q_lm, k.data_ptr(), v.data_ptr(), strides, b, h, keys)
 
 
 def _q_projection(x, ln_weight, ln_bias, w_q, scale, q):

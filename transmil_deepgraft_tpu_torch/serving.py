@@ -4,8 +4,9 @@ A bundle is one zip file holding ``meta.json`` and ``params.npz``, the
 flax-layout parameters flattened to ``"a/b/c"`` keys (:mod:`utils.jax_params`),
 so one set of trained weights serves from either package. :meth:`ServingBundle.load`
 also reads the bundles the JAX package exports (``variables.msgpack``, read by
-:mod:`utils.flax_msgpack`): it rebuilds the head from the weights and never
-reads their ``exported/*.jexp`` programs.
+:mod:`utils.flax_msgpack`): it rebuilds the head (and a slide bundle's
+backbone) from the weights and never reads their ``exported/*.jexp``
+programs.
 
     export_serving_bundle(params, "head.tdx", model_name="TransMIL",
                           in_features=2048, n_classes=2)
@@ -16,8 +17,15 @@ Bags are zero-padded to the next bucket length, as the JAX bundles' bucketed
 mode (and the trainer's ``eval_pad='bucket'`` policy) do, so each bucket is
 one shape. The pad is made on the device: only the real rows cross from the
 host (padding a 40,960-tile bag to 65,536 rows in numpy cost more than the
-forward). This slice serves feature bags for the TransMIL head; coords,
-coord-aware heads and slide bundles are not ported yet.
+forward).
+
+A slide bundle (:func:`export_slide_bundle`, ``meta["kind"] == "slide"``)
+also holds the tile backbone, the int8 ResNet50 (``backbone: "int8"``) or the
+float ResNet50 run in bf16, as the flat leaf list the JAX package writes
+(``backbone_leaves``): ``predict_slide(tiles)`` embeds raw tiles in chunks on
+the device and runs the head on the bag. This slice serves the TransMIL head;
+coord-aware heads are not ported yet, so ``coords`` are refused, with the
+JAX package's message for a head that is not coord-aware.
 """
 
 from __future__ import annotations
@@ -31,13 +39,20 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD
+from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models import create_model
+from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
+    EXPANSION, PLANES, QBlock, QResNet50, _block_plan)
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 from transmil_deepgraft_tpu_torch.utils.jax_params import flatten, state_dict_from_jax, unflatten
 
 FORMAT_VERSION = 1
 # Serving buckets default to the mid-range of ops.padding.DEFAULT_BUCKETS.
 DEFAULT_SERVING_BUCKETS: tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192, 16384)
+# Slide bundles serve whole slides, so their head buckets reach the tile
+# counts of large slides (a 40,960-tile slide pads to 65,536).
+SLIDE_SERVING_BUCKETS: tuple[int, ...] = DEFAULT_SERVING_BUCKETS + (32768, 65536)
 
 
 def export_serving_bundle(
@@ -64,35 +79,256 @@ def export_serving_bundle(
         "attention": True,
         "coord_aware": False,
     }
+    _write_bundle(path, meta, flatten(params))
+    return meta
+
+
+def _write_bundle(path: str | Path, meta: dict, arrays: Mapping[str, np.ndarray]) -> None:
     buf = io.BytesIO()
-    np.savez(buf, **flatten(params))
+    np.savez(buf, **arrays)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as z:
         z.writestr("meta.json", json.dumps(meta, indent=1))
         z.writestr("params.npz", buf.getvalue())
+
+
+# ------------------------------------------------------- backbone leaves
+#
+# A slide bundle holds its backbone as the flat leaf list of
+# ``jax.tree.flatten`` over the JAX package's backbone tree, in its order, so
+# one routine rebuilds the backbone from either package's bundle. int8: the
+# fields of ``QResNet50`` (the stem's four, each ``QBlock``'s twelve with the
+# downsample's two only where the block has one, ``final_scale``); the depth
+# and feature width are not leaves and follow from the leaf count and the
+# last block's conv3. bf16: the leaves of the float ResNet50's
+# ``{'batch_stats', 'params'}`` tree in sorted-key order, as JAX sorts dict
+# keys; the JAX package stores them in bfloat16, the port in float32, and
+# both run in bfloat16.
+
+def _qresnet_leaf_specs(truncate_after: int) -> list[tuple[str, tuple, torch.dtype]]:
+    """(name, shape, dtype) of each int8 backbone leaf, in leaf order."""
+    i8, f32 = torch.int8, torch.float32
+    specs = [("stem_w", (4, 4, 12, 64), i8), ("stem_m", (64,), f32), ("stem_z", (64,), f32),
+             ("input_scale", (), f32)]
+    cin = 64
+    for name, _, has_ds in _block_plan(truncate_after):
+        mid = PLANES[int(name[5]) - 1]
+        cout = mid * EXPANSION
+        shapes = {"w1": ((1, 1, cin, mid), i8), "m1": ((mid,), f32), "z1": ((mid,), f32),
+                  "w2": ((3, 3, mid, mid), i8), "m2": ((mid,), f32), "z2": ((mid,), f32),
+                  "w3": ((1, 1, mid, cout), i8), "m3": ((cout,), f32), "z3": ((cout,), f32),
+                  "wd": ((1, 1, cin, cout), i8), "md": ((cout,), f32), "id_mult": ((), f32)}
+        for field in QBlock._fields:
+            if field in ("wd", "md") and not has_ds:
+                continue
+            specs.append((f"{name}.{field}", *shapes[field]))
+        cin = cout
+    specs.append(("final_scale", (), f32))
+    return specs
+
+
+def _resnet_leaf_paths(truncate_after: int) -> list[tuple[str, ...]]:
+    """The flax paths of the float ResNet50's leaves, in JAX's leaf order."""
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet50
+
+    fields = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+    paths = []
+    for key, value in resnet50(truncate_after).state_dict().items():
+        *modules, field = key.split(".")
+        if field == "num_batches_tracked":
+            continue
+        if value.dim() == 4:  # a conv's weight
+            paths.append(("params", *modules, "kernel"))
+        else:
+            top, leaf = fields[field]
+            paths.append((top, *modules, leaf))
+    return sorted(paths)
+
+
+def _depth_from_leaves(count: int, lengths: Mapping[int, int], what: str) -> int:
+    for depth, n in lengths.items():
+        if n == count:
+            return depth
+    raise ValueError(f"{count} {what} backbone leaves match no ResNet50 depth "
+                     f"(expected one of {sorted(lengths.values())})")
+
+
+def qresnet_leaves(q: QResNet50) -> list[np.ndarray]:
+    """The int8 backbone's leaves (numpy, on the host) in JAX's order."""
+    leaves = [q.stem_w, q.stem_m, q.stem_z, q.input_scale]
+    for blk in q.blocks:
+        leaves += [t for t in blk if t is not None]
+    leaves.append(q.final_scale)
+    return [t.cpu().numpy() for t in leaves]
+
+
+def qresnet_from_leaves(leaves, device: torch.device) -> QResNet50:
+    """An int8 backbone from its leaves (either package's), bit for bit;
+    every leaf's shape and dtype is checked."""
+    depth = _depth_from_leaves(len(leaves), {t: len(_qresnet_leaf_specs(t)) for t in (1, 2, 3, 4)},
+                               "int8")
+    tensors = []
+    for (name, shape, dtype), leaf in zip(_qresnet_leaf_specs(depth), leaves):
+        t = torch.from_numpy(np.array(leaf))
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"int8 backbone leaf {name} is {t.dtype} {tuple(t.shape)}, "
+                             f"expected {dtype} {shape}")
+        tensors.append(t)
+    it = iter(tensors)
+    stem = [next(it) for _ in range(4)]
+    blocks = []
+    for _, _, has_ds in _block_plan(depth):
+        fields = {f: (next(it) if has_ds or f not in ("wd", "md") else None)
+                  for f in QBlock._fields}
+        blocks.append(QBlock(**fields))
+    final_scale = next(it)
+    return QResNet50(*stem, blocks=tuple(blocks), final_scale=final_scale,
+                     truncate_after=depth,
+                     feature_dim=int(blocks[-1].w3.shape[-1])).to(device)
+
+
+def resnet_leaves(variables: Mapping[str, Any], truncate_after: int) -> list[np.ndarray]:
+    """The float ResNet50's leaves (float32 numpy) in JAX's order."""
+    out = []
+    for path in _resnet_leaf_paths(truncate_after):
+        node = variables
+        for key in path:
+            node = node[key]
+        out.append(np.asarray(node, np.float32))
+    return out
+
+
+def resnet_from_leaves(leaves, device: torch.device):
+    """The float ResNet50 from its leaves (either package's: bfloat16 or
+    float32), in bfloat16 on ``device``."""
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet50
+    from transmil_deepgraft_tpu_torch.utils.jax_params import resnet_state_dict_from_jax
+
+    depth = _depth_from_leaves(len(leaves), {t: len(_resnet_leaf_paths(t)) for t in (1, 2, 3, 4)},
+                               "bf16")
+    tree: dict = {}
+    for path, leaf in zip(_resnet_leaf_paths(depth), leaves):
+        value = leaf.float().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        if not np.issubdtype(value.dtype, np.floating):
+            raise ValueError(f"bf16 backbone leaf {'/'.join(path)} is {value.dtype}, not a float")
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    model = resnet50(depth)
+    model.load_state_dict(resnet_state_dict_from_jax(tree))
+    return model.to(device, torch.bfloat16).eval()
+
+
+def export_slide_bundle(
+    backbone_variables: Mapping[str, Any],
+    head_params: Mapping[str, Any],
+    path: str | Path,
+    *,
+    model_name: str,
+    in_features: int,
+    n_classes: int,
+    calib_tiles: np.ndarray | None = None,
+    chunk: int = 128,
+    tile_hw: int = 224,
+    truncate_after: int = 4,
+    head_buckets: Sequence[int] = SLIDE_SERVING_BUCKETS,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Write a ``.tdx`` bundle that serves the whole pipeline, raw tiles ->
+    slide probabilities (:meth:`ServingBundle.predict_slide`); returns its
+    meta.
+
+    ``backbone_variables``: the float ResNet50 ``{'params', 'batch_stats'}``
+    in flax layout (numpy). With ``calib_tiles`` the backbone is the int8
+    ResNet50 calibrated on them on ``device`` (None = CUDA), else the float
+    one, served in bf16. ``head_params``: the TransMIL head's flax-layout
+    params. The backbone's feature width is checked against ``in_features``
+    before the build."""
+    if model_name != "TransMIL":
+        raise ValueError(f"the port serves TransMIL bundles only, not {model_name!r}")
+    last = [name for name, _, _ in _block_plan(truncate_after)][-1]
+    feature_dim = int(np.shape(backbone_variables["params"][last]["conv3"]["kernel"])[-1])
+    if feature_dim != in_features:
+        raise ValueError(f"backbone produces {feature_dim}-d features but the head expects "
+                         f"in_features={in_features}")
+    if calib_tiles is not None:
+        from transmil_deepgraft_tpu_torch.models.resnet_int8 import build_qresnet50
+
+        q = build_qresnet50(backbone_variables, calib_tiles, truncate_after=truncate_after,
+                            device=device)
+        leaves, precision = qresnet_leaves(q), "int8"
+    else:
+        leaves, precision = resnet_leaves(backbone_variables, truncate_after), "bf16"
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "slide",
+        "model_name": model_name,
+        "in_features": int(in_features),
+        "n_classes": int(n_classes),
+        "batch": 1,
+        "mode": "bucketed",
+        "buckets": sorted(int(b) for b in head_buckets),
+        "attention": True,
+        "coord_aware": False,
+        "chunk": int(chunk),
+        "tile_hw": int(tile_hw),
+        "backbone": precision,
+        "truncate_after": int(truncate_after),
+    }
+    arrays = {f"backbone_leaves/{i:03d}": leaf for i, leaf in enumerate(leaves)}
+    arrays.update(flatten({"head": {"params": head_params}}))
+    _write_bundle(path, meta, arrays)
     return meta
 
 
+def _refuse_coords(coords, what: str = "bundle's") -> None:
+    if coords is not None:
+        raise ValueError(
+            f"this {what} head is not coord-aware; re-export from a "
+            "coord-aware head (e.g. RoFormerMIL) to use coords"
+        )
+
+
 class ServingBundle:
-    """A loaded bundle: ``predict(feats)`` on one device. The weights are
-    staged on the device once, at load."""
+    """A loaded bundle: ``predict(feats)`` on one device, and for a slide
+    bundle ``predict_slide(tiles)``. The weights are staged on the device
+    once, at load."""
 
     def __init__(self, meta: dict, params: Mapping[str, Any],
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None, backbone_leaves=None) -> None:
+        """``params``: the head's flax-layout params; ``backbone_leaves``: a
+        slide bundle's backbone leaves."""
         self.meta = meta
-        self.model = create_model(meta["model_name"], meta["n_classes"],
-                                  meta["in_features"], device=device)
-        self.device = next(self.model.parameters()).device
-        self.model.load_state_dict(state_dict_from_jax(params, meta["in_features"]))
+        if meta.get("coord_aware"):
+            raise ValueError("coord-aware bundles are not ported yet")
+        self.device = resolve_device(device)
+        in_features = meta["in_features"]
+        self.model = create_model(meta["model_name"], meta["n_classes"], in_features,
+                                  int(np.shape(params["fc"]["kernel"])[0]), device=self.device)
+        self.model.load_state_dict(state_dict_from_jax(params, in_features))
         self.model.eval()
+        if meta.get("kind") == "slide":
+            if meta["backbone"] == "int8":
+                from transmil_deepgraft_tpu_torch.models.resnet_int8 import apply_qresnet50
+
+                self._q = qresnet_from_leaves(backbone_leaves, self.device)
+                self._embed_core = lambda x: apply_qresnet50(self._q, x)
+            else:
+                backbone = resnet_from_leaves(backbone_leaves, self.device)
+                self._embed_core = lambda x: backbone(x.to(torch.bfloat16)).float()
+            self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
+            self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
     @classmethod
     def load(cls, path: str | Path, device: str | torch.device | None = None) -> "ServingBundle":
         """Load a bundle of either package: the port's ``params.npz`` or the
         JAX package's ``variables.msgpack`` (its ``batch_stats``, if any, are
         not used by TransMIL; ``n_classes`` comes from the head's weights when
-        the meta has none)."""
+        the meta has none). A slide bundle's backbone is rebuilt from its
+        leaves; ``device`` None means CUDA."""
         with zipfile.ZipFile(path) as z:
             meta = json.loads(z.read("meta.json"))
             if meta["format_version"] > FORMAT_VERSION:
@@ -103,14 +339,21 @@ class ServingBundle:
             names = z.namelist()
             if "params.npz" in names:
                 with np.load(io.BytesIO(z.read("params.npz"))) as npz:
-                    params = unflatten({k: npz[k] for k in npz.files})
+                    tree = unflatten({k: npz[k] for k in npz.files})
+                if "backbone_leaves" in tree:
+                    leaves = tree["backbone_leaves"]
+                    tree["backbone_leaves"] = [leaves[k] for k in sorted(leaves)]
             elif "variables.msgpack" in names:
-                params = read_flax_msgpack(z.read("variables.msgpack"))["params"]
-                meta.setdefault("n_classes", int(np.shape(params["fc"]["kernel"])[1]))
+                tree = read_flax_msgpack(z.read("variables.msgpack"))
             else:
                 raise ValueError(f"{path} holds neither params.npz (a bundle of the port) nor "
                                  "variables.msgpack (a bundle of the JAX package)")
-        return cls(meta, params, device)
+        if meta.get("kind") == "slide":
+            params, leaves = tree["head"]["params"], tree["backbone_leaves"]
+        else:  # the port writes a head's params alone, JAX its variables
+            params, leaves = (tree if "params.npz" in names else tree["params"]), None
+        meta.setdefault("n_classes", int(np.shape(params["fc"]["kernel"])[1]))
+        return cls(meta, params, device, leaves)
 
     def _pad_target(self, n: int) -> int:
         for b in self.meta["buckets"]:
@@ -121,11 +364,12 @@ class ServingBundle:
             f"({self.meta['buckets'][-1]}); re-export with larger buckets"
         )
 
-    def _prepare_one(self, feats: np.ndarray) -> tuple[int, int, np.ndarray]:
+    def _prepare_one(self, feats: np.ndarray, coords=None) -> tuple[int, int, np.ndarray]:
         """The single-bag input contract shared by the batched predict and
         :class:`MicroBatcher`: validate dims and pick the serving bucket.
         Returns ``(n_real, target, (n_real, D) float32 feats)``; the zero pad
         to ``target`` rows is made on the device by :meth:`_device_bags`."""
+        _refuse_coords(coords)
         feats = np.ascontiguousarray(feats, np.float32)
         if feats.ndim != 2:
             raise ValueError(f"each bag must be (n, D), got {feats.shape}")
@@ -134,9 +378,10 @@ class ServingBundle:
             raise ValueError(f"expected in_features={self.meta['in_features']}, got {d}")
         return n, self._pad_target(n), feats
 
-    def _prepare_inputs(self, feats: np.ndarray) -> tuple[int, int, list[np.ndarray]]:
+    def _prepare_inputs(self, feats: np.ndarray, coords=None) -> tuple[int, int, list[np.ndarray]]:
         """Validate a (n, D) or (B, n, D) request; returns (n_real, target,
         B bags)."""
+        _refuse_coords(coords)
         feats = np.asarray(feats, np.float32)
         if feats.ndim == 2:
             feats = feats[None]
@@ -162,24 +407,94 @@ class ServingBundle:
         with torch.inference_mode():
             return self.model(self._device_bags(bags, target, batch)).cpu().numpy()
 
-    def predict_logits(self, feats: np.ndarray) -> np.ndarray:
+    def predict_logits(self, feats: np.ndarray, coords=None) -> np.ndarray:
         """(n, D) or (B, n, D) float32 features -> (B, C) logits."""
-        _, target, bags = self._prepare_inputs(feats)
+        _, target, bags = self._prepare_inputs(feats, coords)
         return self._logits(bags, target, len(bags))
 
-    def predict(self, feats: np.ndarray) -> np.ndarray:
+    def predict(self, feats: np.ndarray, coords=None) -> np.ndarray:
         """(n, D) or (B, n, D) features -> (B, C) class probabilities."""
-        return _softmax(self.predict_logits(feats))
+        return _softmax(self.predict_logits(feats, coords))
 
-    def predict_logits_with_attention(self, feats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def predict_logits_with_attention(self, feats: np.ndarray,
+                                      coords=None) -> tuple[np.ndarray, np.ndarray]:
         """(n, D) or (B, n, D) features -> ((B, C) logits, (B, n) per-tile
         attention scores): heads averaged, padding scores stripped."""
-        n, target, bags = self._prepare_inputs(feats)
+        n, target, bags = self._prepare_inputs(feats, coords)
+        return self._attention_logits(self._device_bags(bags, target, len(bags)), n)
+
+    def _attention_logits(self, x: torch.Tensor, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """The head's ``return_attn`` forward (its layers' plain path) on the
+        padded device bags ``x`` -> (logits, scores of the first n tiles)."""
+        if not self.meta.get("attention"):
+            raise ValueError("bundle exported without attention; re-export with attention=True")
         with torch.inference_mode():
-            logits, attn = self.model(self._device_bags(bags, target, len(bags)),
-                                      return_attn=True)
+            logits, attn = self.model(x, return_attn=True)
             scores = attn.tile_scores().mean(dim=1)
             return logits.cpu().numpy(), scores[:, :n].cpu().numpy()
+
+    # ------------------------------------------------------- slide bundles
+    def embed_tiles(self, tiles: np.ndarray) -> torch.Tensor:
+        """(N, H, W, 3) float32 (normalized) or uint8 (raw) tiles -> (N, D)
+        float32 features left on the device: the backbone in fixed chunks,
+        the last one zero-padded, features concatenated on the device."""
+        if self.meta.get("kind") != "slide":
+            raise ValueError("not a slide bundle: export with export_slide_bundle")
+        from transmil_deepgraft_tpu_torch.inference import chunked_device_embed, embed_chunk
+
+        hw = int(self.meta["tile_hw"])
+        tiles = np.asarray(tiles)
+        if np.issubdtype(tiles.dtype, np.integer) and tiles.dtype != np.uint8:
+            # raw pixels sent as wider integers (JSON) take the uint8 path;
+            # read as float32 they would be taken for normalized tiles
+            if tiles.size and (tiles.min() < 0 or tiles.max() > 255):
+                raise ValueError(
+                    "integer tiles must be raw pixels in [0, 255] (uint8 "
+                    "path); send float32 for pre-normalized tiles"
+                )
+            tiles = tiles.astype(np.uint8)
+        elif tiles.dtype != np.uint8:
+            tiles = tiles.astype(np.float32, copy=False)
+        if tiles.ndim != 4 or tiles.shape[1:] != (hw, hw, 3):
+            raise ValueError(f"expected tiles (N, {hw}, {hw}, 3), got {tiles.shape}")
+        return chunked_device_embed(
+            lambda batch: embed_chunk(self._embed_core, batch, self._mean, self._std),
+            tiles, int(self.meta["chunk"]))
+
+    def _slide_bag(self, tiles: np.ndarray, coords) -> tuple[int, torch.Tensor]:
+        """(n, the (1, bucket, D) bag on the device): the bucket is chosen
+        before the embed, so a slide beyond the largest bucket fails at once;
+        the zero pad is made on the device."""
+        n = int(np.shape(tiles)[0])
+        target = self._pad_target(n)
+        _refuse_coords(coords, "slide bundle's")
+        feats = self.embed_tiles(tiles)
+        return n, torch.nn.functional.pad(feats, (0, 0, 0, target - n))[None]
+
+    def predict_slide_logits(self, tiles: np.ndarray, coords=None) -> np.ndarray:
+        """(N, H, W, 3) tiles (float32 normalized or uint8 raw) -> (C,)
+        slide logits."""
+        _, x = self._slide_bag(tiles, coords)
+        with torch.inference_mode():
+            return self.model(x).cpu().numpy()[0]
+
+    def predict_slide(self, tiles: np.ndarray, coords=None) -> np.ndarray:
+        """(N, H, W, 3) tiles -> (C,) slide class probabilities."""
+        return _softmax(self.predict_slide_logits(tiles, coords))
+
+    def predict_slide_logits_with_attention(self, tiles: np.ndarray,
+                                            coords=None) -> tuple[np.ndarray, np.ndarray]:
+        """(N, H, W, 3) tiles -> ((C,) logits, (N,) per-tile attention scores)."""
+        n, x = self._slide_bag(tiles, coords)
+        logits, scores = self._attention_logits(x, n)
+        return logits[0], scores[0]
+
+    def predict_slide_with_attention(self, tiles: np.ndarray,
+                                     coords=None) -> tuple[np.ndarray, np.ndarray]:
+        """(N, H, W, 3) tiles -> ((C,) probs, (N,) per-tile attention
+        scores), for heatmaps and top-k tiles from the bundle alone."""
+        logits, scores = self.predict_slide_logits_with_attention(tiles, coords)
+        return _softmax(logits), scores
 
 
 def _softmax(logits: np.ndarray) -> np.ndarray:
@@ -244,9 +559,10 @@ class MicroBatcher:
         with self._depth_lock:
             self._depth -= k
 
-    def predict_logits(self, feats: np.ndarray) -> np.ndarray:
+    def predict_logits(self, feats: np.ndarray, coords=None) -> np.ndarray:
         """(n, D) / (B, n, D) features -> (B, C) logits (B bags enqueue as B
         independent micro-batchable requests)."""
+        _refuse_coords(coords)
         feats = np.asarray(feats, np.float32)
         if feats.ndim == 2:
             feats = feats[None]
@@ -255,8 +571,8 @@ class MicroBatcher:
         futures = [self._enqueue(f) for f in feats]
         return np.stack([f.result() for f in futures])
 
-    def predict(self, feats: np.ndarray) -> np.ndarray:
-        return _softmax(self.predict_logits(feats))
+    def predict(self, feats: np.ndarray, coords=None) -> np.ndarray:
+        return _softmax(self.predict_logits(feats, coords))
 
     def close(self) -> None:
         self._q.put(self._CLOSE)

@@ -7,10 +7,13 @@ name, raw C-order buffer), and numpy scalars as ExtType 3 (the same triple of
 a 0-d array). The ``msgpack`` package may be absent where the port runs, so
 this is a reader of that subset, written by hand.
 
-Refused with a ``ValueError`` that names the format: ``bfloat16`` arrays
-(numpy has no such dtype), native complex numbers (ExtType 2), flax's chunked
-leaves (arrays over 1 GiB), any other extension type and any byte that is not
-msgpack.
+``bfloat16`` arrays (flax writes the dtype name ``bfloat16`` and 2-byte
+elements; numpy has no such dtype) come back as ``torch.bfloat16`` tensors;
+every other array as a numpy array.
+
+Refused with a ``ValueError`` that names the format: native complex numbers
+(ExtType 2), flax's chunked leaves (arrays over 1 GiB), any other extension
+type and any byte that is not msgpack.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import struct
 from typing import Any
 
 import numpy as np
+import torch
 
 _FORMAT = "flax msgpack (variables.msgpack)"
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
@@ -105,8 +109,9 @@ class _Reader:
         raise ValueError(f"unknown ExtType {code} in {_FORMAT}")
 
 
-def _ndarray(payload: bytes) -> np.ndarray:
-    """flax ``_ndarray_to_bytes``: msgpack (shape, dtype name, C-order buffer)."""
+def _ndarray(payload: bytes) -> np.ndarray | torch.Tensor:
+    """flax ``_ndarray_to_bytes``: msgpack (shape, dtype name, C-order
+    buffer); a bfloat16 buffer becomes a ``torch.bfloat16`` tensor."""
     inner = _Reader(payload)
     triple = inner.value()
     if not (isinstance(triple, list) and len(triple) == 3):
@@ -114,7 +119,8 @@ def _ndarray(payload: bytes) -> np.ndarray:
     shape, name, buf = triple
     name = name.decode() if isinstance(name, bytes) else name
     if name == "bfloat16":
-        raise ValueError(f"bfloat16 arrays in {_FORMAT} are not supported: numpy has no bfloat16")
+        bits = np.frombuffer(buf, dtype=np.uint16).reshape(shape).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
     dtype = np.dtype(name)
     if dtype.hasobject:
         raise ValueError(f"object arrays in {_FORMAT} are not supported")
@@ -123,7 +129,8 @@ def _ndarray(payload: bytes) -> np.ndarray:
 
 def read_flax_msgpack(data: bytes) -> Any:
     """Decode the bytes of ``flax.serialization.msgpack_serialize`` into
-    nested dicts and lists with numpy array leaves."""
+    nested dicts and lists with numpy array leaves (``torch.bfloat16``
+    tensors for bfloat16 arrays)."""
     reader = _Reader(data)
     out = reader.value()
     if reader.pos != len(reader.data):

@@ -1,0 +1,237 @@
+"""Torch state dicts -> flax-layout parameter trees (the port's copy of the
+TransMIL and ResNet converters of ``utils/torch_weights.py``).
+
+The reference's checkpoints (``retccl_best_ckpt.pth``, torchvision ResNets,
+TransMIL Lightning checkpoints, the port's own trainer checkpoints, which use
+the reference's TransMIL names) convert to the nested-dict layout that the
+port's bundles and pipelines take (``utils/jax_params`` maps it onto the
+port's modules). Pure name and transpose mapping on numpy arrays: torch
+``Conv2d.weight (O,I,H,W)`` -> ``kernel (H,W,I,O)``, ``Linear.weight (O,I)``
+-> ``kernel (I,O)``, BatchNorm weight/bias/running_mean/running_var ->
+scale/bias + batch_stats mean/var. The other heads' converters come with
+their heads.
+"""
+
+from __future__ import annotations
+
+import zipfile
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+
+from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+
+def _np(t: Any) -> np.ndarray:
+    try:
+        return t.detach().cpu().numpy()
+    except AttributeError:
+        return np.asarray(t)
+
+
+def convert_resnet_state_dict(
+    state_dict: Mapping[str, Any], truncate_after: int = 4
+) -> dict:
+    """torch ResNet state dict -> flax-layout {'params': ..., 'batch_stats': ...}
+    (``utils/jax_params.resnet_state_dict_from_jax`` maps it onto the port's
+    ``models/resnet.ResNet``).
+
+    Handles torchvision naming (``layer1.0.conv1.weight``) and the RetCCL ckpt's
+    extras (fc/instDis/groupDis heads are skipped in feature mode).
+    """
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list[str], value: np.ndarray) -> None:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    for key, value in state_dict.items():
+        v = _np(value)
+        parts = key.split(".")
+        if parts[0].startswith("module"):  # DataParallel prefix
+            parts = parts[1:]
+        head = parts[0]
+
+        if head == "conv1":
+            put(params, ["conv1", "kernel"], v.transpose(2, 3, 1, 0))
+        elif head == "bn1":
+            _put_bn(params, stats, ["bn1"], parts[1], v)
+        elif head.startswith("layer"):
+            stage = int(head[5:])
+            if stage > truncate_after:
+                continue
+            block_idx = parts[1]
+            mod = parts[2]
+            name = f"layer{stage}_{block_idx}"
+            if mod.startswith("conv"):
+                put(params, [name, mod, "kernel"], v.transpose(2, 3, 1, 0))
+            elif mod.startswith("bn"):
+                _put_bn(params, stats, [name, mod], parts[3], v)
+            elif mod == "downsample":
+                sub = "downsample_conv" if parts[3] == "0" else "downsample_bn"
+                if sub == "downsample_conv":
+                    put(params, [name, sub, "kernel"], v.transpose(2, 3, 1, 0))
+                else:
+                    _put_bn(params, stats, [name, sub], parts[4], v)
+        # heads (fc / instDis / groupDis) are intentionally skipped: backbones run
+        # in feature mode (fc = Identity, ref model_interface.py:247).
+
+    return {"params": params, "batch_stats": stats}
+
+
+def _put_bn(params: dict, stats: dict, path: list[str], field: str, v: np.ndarray) -> None:
+    def put(tree: dict, p: list[str], value: np.ndarray) -> None:
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = value
+
+    if field == "weight":
+        put(params, path + ["scale"], v)
+    elif field == "bias":
+        put(params, path + ["bias"], v)
+    elif field == "running_mean":
+        put(stats, path + ["mean"], v)
+    elif field == "running_var":
+        put(stats, path + ["var"], v)
+    # num_batches_tracked ignored
+
+
+def convert_transmil_state_dict(state_dict: Mapping[str, Any], in_features: int = 2048) -> dict:
+    """torch TransMIL state dict -> ``{'params': ...}`` in flax layout
+    (``utils/jax_params.state_dict_from_jax`` is its inverse).
+
+    Key layout of the reference model (``models/TransMIL.py:78-155`` with the
+    lucidrains NystromAttention submodule; Lightning ckpts prefix everything
+    with ``model.``):
+      _fc1.{i}.weight/bias            input MLP (Linear / LayerNorm indices vary
+                                      by in_features variant)
+      cls_token                       (1, 1, 512)
+      layer{1,2}.norm.weight/bias     pre-norm LN
+      layer{1,2}.attn.to_qkv.weight   (1536, 512)
+      layer{1,2}.attn.to_out.0.weight/bias
+      layer{1,2}.attn.res_conv.weight (heads, 1, ks, 1) depthwise value conv
+      pos_layer.proj{,1,2}.weight     (512, 1, k, k) depthwise PPEG convs + bias
+      norm.weight/bias; _fc.weight/bias
+    """
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    p: dict = {}
+
+    def lin(dst: str, src: str) -> None:
+        p[dst] = {"kernel": _np(sd[f"{src}.weight"]).T}
+        if f"{src}.bias" in sd:
+            p[dst]["bias"] = _np(sd[f"{src}.bias"])
+
+    def ln(dst: str, src: str) -> None:
+        p[dst] = {"scale": _np(sd[f"{src}.weight"]), "bias": _np(sd[f"{src}.bias"])}
+
+    # fc1 variants (ref TransMIL.py:100-133): sequential indices of Linear/LN.
+    if in_features == 2048:
+        lin("fc1_0", "_fc1.0")
+        ln("fc1_norm0", "_fc1.2")
+        lin("fc1_1", "_fc1.3")
+    elif in_features in (1024, 768):
+        lin("fc1_0", "_fc1.0")
+        ln("fc1_norm0", "_fc1.3")
+        lin("fc1_1", "_fc1.4")
+        if "_fc1.7.weight" in sd:
+            ln("fc1_norm1", "_fc1.7")
+    else:
+        lin("fc1_0", "_fc1.0")
+
+    p["cls_token"] = _np(sd["cls_token"])
+    _map_translayer(sd, p, "layer1")
+    _map_translayer(sd, p, "layer2")
+    _map_ppeg(sd, p, "pos_layer")
+    ln("norm", "norm")
+    lin("fc", "_fc")
+    return {"params": _nest(p)}
+
+
+def _map_translayer(sd: Mapping[str, Any], p: dict, layer: str) -> None:
+    """Map one reference TransLayer (norm + NystromAttention) into ``p``."""
+    p[f"{layer}.norm"] = {
+        "scale": _np(sd[f"{layer}.norm.weight"]), "bias": _np(sd[f"{layer}.norm.bias"]),
+    }
+    attn: dict = {}
+    attn["to_qkv"] = {"kernel": _np(sd[f"{layer}.attn.to_qkv.weight"]).T}
+    attn["to_out"] = {
+        "kernel": _np(sd[f"{layer}.attn.to_out.0.weight"]).T,
+        "bias": _np(sd[f"{layer}.attn.to_out.0.bias"]),
+    }
+    # torch res_conv weight (heads, 1, ks, 1) -> flax param (ks, heads)
+    rc = _np(sd[f"{layer}.attn.res_conv.weight"])
+    attn["res_conv"] = rc[:, 0, :, 0].T
+    p[f"{layer}.attn"] = attn
+
+
+def _map_ppeg(sd: Mapping[str, Any], p: dict, src: str, dst: str = "pos_layer") -> None:
+    """Map a reference PPEG (proj/proj1/proj2 depthwise convs) into ``p``."""
+    pos: dict = {}
+    for name in ("proj", "proj1", "proj2"):
+        w = _np(sd[f"{src}.{name}.weight"])  # (C, 1, k, k)
+        pos[name] = w.transpose(2, 3, 1, 0)  # (k, k, 1, C)
+        pos[f"{name}_bias"] = _np(sd[f"{src}.{name}.bias"])
+    p[dst] = pos
+
+
+def _nest(flat: Mapping[str, Any]) -> dict:
+    """Nest dotted keys, merging shared prefixes (layer1.norm / layer1.attn)."""
+    nested: dict = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        node = nested
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if parts[-1] in node and isinstance(node[parts[-1]], dict) and isinstance(v, dict):
+            node[parts[-1]].update(v)
+        else:
+            node[parts[-1]] = v
+    return nested
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """Load a .pth/.ckpt with torch (CPU); returns the raw state dict
+    (unwraps Lightning's ``state_dict`` key). Unpickles: load only files
+    from a trusted source."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        return obj["state_dict"]
+    return obj
+
+
+def _is_torch_file(path: str | Path) -> bool:
+    """``torch.save`` writes a zip archive (and older ``.pth``/``.pt`` files
+    a pickle); flax writes msgpack."""
+    return str(path).endswith((".pth", ".pt")) or zipfile.is_zipfile(path)
+
+
+def load_head_params(path: str | Path, in_features: int) -> dict:
+    """TransMIL weights from a checkpoint -> flax-layout params: a torch
+    state dict in the reference's names (a ``.pth``, a Lightning ``.ckpt``,
+    the port's trainer checkpoints) or a flax msgpack tree (a variables
+    tree or the JAX trainer's checkpoint, whose ``params`` are taken)."""
+    if _is_torch_file(path):
+        return convert_transmil_state_dict(load_torch_checkpoint(str(path)), in_features)["params"]
+    tree = read_flax_msgpack(Path(path).read_bytes())
+    if isinstance(tree, dict) and "params" in tree:
+        return tree["params"]
+    raise ValueError(f"no 'params' in the flax checkpoint {path} (top-level keys: "
+                     f"{list(tree)[:8] if isinstance(tree, dict) else type(tree).__name__})")
+
+
+def load_backbone_variables(path: str | Path) -> dict:
+    """ResNet50 weights -> flax-layout ``{'params', 'batch_stats'}``: a torch
+    state dict (torchvision or RetCCL names) or a flax msgpack variables tree."""
+    if _is_torch_file(path):
+        return convert_resnet_state_dict(load_torch_checkpoint(str(path)))
+    tree = read_flax_msgpack(Path(path).read_bytes())
+    if isinstance(tree, dict) and "params" in tree and "batch_stats" in tree:
+        return tree
+    raise ValueError(f"unrecognized backbone checkpoint structure in {path}")
