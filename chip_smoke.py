@@ -31,8 +31,9 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    the all-plain route, and the int8 features against the float ResNet50;
 7. holds the Nystrom landmark kernels (B5/B6 on a packed qkv, B3/B4 on
    (b*h, n, d) arrays) against their plain versions at the training shape
-   (n = 1,280) and at a 40,960-tile bag (n = 41,472), B3/B4 also at a ragged
-   n = 1,000, checks that two landmark-kernel calls in a row agree, checks the
+   (n = 1,280), at a 40,960-tile bag (n = 41,472) and at the configs' train
+   batch (64 bags of 200 tiles, n = 256), B3/B4 also at a ragged n = 1,000,
+   checks that two landmark-kernel calls in a row agree, checks the
    fused attention's forward and analytic backward against autograd through
    the plain op, and times the kernels (per call, back to back, the host's
    enqueue and the device's time), their plain versions and the one PyTorch
@@ -53,7 +54,17 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    ``Trainer.fit`` (2 epochs of 32 synthetic 1,000-tile bags, lookahead_radam,
    grad_acc 2) and ``Trainer.test``, checks the launch counts of B5/B6 and
    K1/K2, holds 8 optimizer steps against the all-plain route, times the
-   optimizer step by part, and runs one forward + backward at 40,960 tiles.
+   optimizer step by part, and runs one forward + backward at 40,960 tiles;
+10. trains through the port's ``cli.train`` from 192 slides of 200-1,000
+   2048-d tiles written as .npy files, with the repository's
+   ``configs/DeepGraft/TransMIL_feat_norm_rest.yaml`` (train batch 64 x 200
+   tiles, grad_acc 2, radam, precision 16-mixed) cut to 2 epochs: run 1 as
+   written (bf16) and ``--stage test`` over its checkpoints, run 2 with
+   ``use_pallas`` in float32 and a 2-fold run, run 3 all plain (held to run
+   2 within 1e-4), bf16 against float32 at run 1's weights (within 5e-2),
+   exact launch counts of B5/B6 and K1/K2 on each run, the optimizer step at
+   64 x 200 by part with the device's busy share (torch.profiler), and one
+   epoch's train batches from the .npy files against the bag store.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -114,6 +125,15 @@ PARITY_STEPS = 8  # optimizer steps held against the all-plain route
 BIG_BAG = 40960
 SERVE_BAG = 12000  # the /predict request of the serve phase
 DISK_TILES = 256  # JPEG tiles a slide on disk (two slides)
+# the cli_train cohort: 2048-d feature bags of 200-1,000 tiles as .npy files
+CLI_CONFIG = "transmil_deepgraft_tpu/configs/DeepGraft/TransMIL_feat_norm_rest.yaml"
+CLI_SPLITS = {"train": 128, "val": 32, "test": 32}
+CLI_TILES = (200, 1000)
+CLI_EPOCHS = 2
+CLI_BATCH, CLI_BAG = 64, 200  # the config's train batch and bag_size
+CLI_N = 256  # a 200-tile bag: 15^2 grid + cls, landmark-padded
+BF16_BAR = 5e-2  # the bfloat16 bar's cap per logit (PERF.md section 2)
+TIMED_STEPS = 6  # optimizer steps timed at 64 x 200 after a warm-up one
 
 
 def log(msg: str) -> None:
@@ -769,15 +789,16 @@ def npy(arr) -> bytes:
     return buf.getvalue()
 
 
-def quiet(main, argv: list[str]):
-    """A CLI's ``main(argv)``, its printed JSON summary logged on one line
-    under ``[serve]`` (the last lines of this script's output stay its own)."""
+def quiet(main, argv: list[str], tag: str = "serve"):
+    """A CLI's ``main(argv)``, its printed output logged on one line under
+    ``[tag]`` (the last lines of this script's output stay its own)."""
     import contextlib
     import io
 
     with contextlib.redirect_stdout(io.StringIO()) as out:
         result = main(argv)
-    log(f"[serve] {main.__module__.rsplit('.', 1)[-1]}: {out.getvalue().strip()}")
+    text = " | ".join(out.getvalue().strip().splitlines())
+    log(f"[{tag}] {main.__module__.rsplit('.', 1)[-1]}: {text}")
     return result
 
 
@@ -1090,7 +1111,7 @@ def phase_nystrom(rng, results: dict, dev) -> None:
     worst = {"nystrom_landmark_attn": 0.0, "nystrom_query_lm": 0.0}
     timing = {}
     with torch.inference_mode():
-        for b, n in ((2, TRAIN_N), (1, BIG_N)):
+        for b, n in ((2, TRAIN_N), (1, BIG_N), (CLI_BATCH, CLI_N)):
             qkv = t(b, n, 3, h, d)
             q_lm, k_lm, bmat = t(b, h, m, d, scale=0.125), t(b, h, m, d, scale=0.125), t(b, h, m, d)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
@@ -1174,8 +1195,9 @@ def phase_nystrom(rng, results: dict, dev) -> None:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"], "ms_back_to_back": tm["ms_back_to_back"],
             "library_ms_back_to_back": tm["library_ms_back_to_back"],
-            "train_shape": {k: v for k, v in timing[(name, form, TRAIN_N)].items()
-                            if k not in ("bound_ms", "bound_by")},
+            **{key: {k: v for k, v in timing[(name, form, n)].items()
+                     if k not in ("bound_ms", "bound_by")}
+               for key, n in (("train_shape", TRAIN_N), ("cli_train_shape", CLI_N))},
         }
 
 
@@ -1311,6 +1333,274 @@ def phase_train(results: dict, dev) -> None:
         raise AssertionError("the 40,960-tile step missed the kernels or gave non-finite grads")
 
 
+def write_cohort(root: Path, rng) -> dict:
+    """The cli_train cohort under ``root``: per-slide 2048-d float32 .npy
+    bags (a class signal on 64 features), a label JSON whose paths carry
+    ``FEATURES_RETCCL_2048``, a patient map of two slides (one label) a
+    patient. Returns the config's ``Data`` paths."""
+    import numpy as np
+
+    data = root / "data" / "FEATURES_RETCCL_2048"
+    data.mkdir(parents=True)
+    labels, patients, total = {}, {}, 0
+    for split, count in CLI_SPLITS.items():
+        labels[split] = []
+        for i in range(count):
+            name, y = f"{split}_{i:03d}", (i // 2) % 2
+            x = rng.standard_normal((int(rng.integers(CLI_TILES[0], CLI_TILES[1] + 1)), 2048),
+                                    dtype=np.float32)
+            x[:, :64] += 0.25 * y
+            np.save(data / f"{name}.npy", x)
+            total += x.nbytes
+            labels[split].append([f"FEATURES_RETCCL_2048/{name}.npy", y])
+            patients[name] = f"{split}_patient_{i // 2:03d}"
+    (root / "labels.json").write_text(json.dumps(labels))
+    (root / "patients.json").write_text(json.dumps(patients))
+    log(f"[cli_train] cohort: {sum(CLI_SPLITS.values())} slides of {CLI_TILES[0]}-"
+        f"{CLI_TILES[1]} tiles, {total / 2**30:.2f} GiB of .npy")
+    return {"data_dir": str(root / "data"), "label_file": str(root / "labels.json"),
+            "patient_dict": str(root / "patients.json")}
+
+
+def cli_config(root: Path, name: str, data: dict, general: dict | None = None,
+               model: dict | None = None) -> Path:
+    """The repository's ``TransMIL_feat_norm_rest.yaml`` with the cohort's
+    paths, a log path, ``epochs`` and the given changes, under
+    ``root/name/DeepGraft/`` (the file name gives the task)."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / CLI_CONFIG).read_text())
+    if (cfg["Data"]["train_dataloader"]["batch_size"], cfg["Data"]["bag_size"]) != (CLI_BATCH,
+                                                                                     CLI_BAG):
+        raise AssertionError(f"{CLI_CONFIG} no longer trains {CLI_BATCH} bags of {CLI_BAG}")
+    cfg["Data"].update(data)
+    cfg["General"].update({"log_path": str(root / "logs"), "epochs": CLI_EPOCHS, **(general or {})})
+    cfg["Model"].update(model or {})
+    path = root / name / "DeepGraft" / Path(CLI_CONFIG).name
+    path.parent.mkdir(parents=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def launch_counts(run):
+    """(run's result, the launches of B5/B6 and K1/K2 during it): every count
+    is set to 0 just before and read just after."""
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+
+    nk.reset_launch_counts()
+    tk.reset_launch_counts()
+    out = run()
+    return out, {**nk.LAUNCHES, **tk.LAUNCHES}
+
+
+def expect(label: str, got: dict, landmark: int, translayer: int) -> None:
+    want = {"nystrom_landmark_attn": landmark, "nystrom_query_lm": landmark,
+            "translayer_k1": translayer, "translayer_k2": translayer}
+    log(f"[cli_train] {label}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: expected launches {want}, got {got}")
+
+
+def metric_rows(log_dir: Path) -> list[dict]:
+    rows = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in rows if "val_loss" in r]
+
+
+def time_steps(trainer, batches: list, label: str) -> None:
+    """Optimizer steps at 64 x 200 on the card: the median step and its
+    forward / backward / update parts (host clock, synchronized), then the
+    device's busy share of three steps from a torch.profiler trace."""
+    import numpy as np
+    import torch
+
+    dev, acc = trainer.device, trainer.tx.grad_accum_steps
+    trainer.tx.init(trainer.model.parameters())
+    staged = [trainer._batch_tensors(b) for b in batches]
+    parts = []
+    for i in range(0, len(staged) - acc + 1, acc):
+        step = np.zeros(3)
+        for bags, labels in staged[i:i + acc]:
+            for p in trainer.model.parameters():
+                p.grad = None
+            sync(dev)
+            t0 = time.perf_counter()
+            loss, _ = trainer.loss(bags, labels)
+            sync(dev)
+            t1 = time.perf_counter()
+            loss.backward()
+            sync(dev)
+            t2 = time.perf_counter()
+            trainer.tx.step()
+            sync(dev)
+            step += np.array([t1 - t0, t2 - t1, time.perf_counter() - t2]) * 1e3
+        parts.append(step)
+    parts = np.array(parts[1:])  # the first step warms up
+    med = np.median(parts, axis=0)
+    log(f"[cli_train] {label}: one optimizer step ({acc} micro-steps of {CLI_BATCH} x {CLI_BAG} "
+        f"tiles), median of {len(parts)}: {np.median(parts.sum(1)):.3f} ms = forward "
+        f"{med[0]:.3f} + backward {med[1]:.3f} + optimizer update {med[2]:.3f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = staged[:3 * acc]
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for bags, labels in steps:
+            trainer.train_step(bags, labels)
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the device's kernels: their time ranges on the card (one stream, so
+    # they do not overlap), summed by name
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_us = sum(by_name.values())
+    busy = f"{device_us / wall_us:.3f}" if device_us > 0 else "not measured (no device time)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[cli_train] {label}: 3 optimizer steps under torch.profiler: wall {wall_us / 1e3:.2f} ms, "
+        f"device kernels {device_us / 1e3:.2f} ms ({len(by_name)} kernel names), busy share "
+        f"{busy}; top: " + "; ".join(f"{name[:70]} {us / 1e3:.2f} ms" for name, us in top))
+
+
+def phase_cli_train(rng, results: dict, dev) -> None:
+    """The port's ``cli.train`` on the card over a 192-slide cohort of .npy
+    feature bags, with the repository's TransMIL_feat_norm_rest.yaml (train
+    batch 64, bag 200, grad_acc 2, radam, precision 16-mixed): run 1 as
+    written (bfloat16; K1/K2 at every eval bag) and its --stage test; run 2
+    with use_pallas and float32 (B5/B6 in training) and a 2-fold run; run 3
+    all plain, held to run 2 within 1e-4; bfloat16 against float32 at run 1's
+    weights; exact launch counts; the epoch and the step at 64 x 200; the
+    bag store's batches against the .npy path."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.utils.checkpoints import read_checkpoint
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+
+    micro = CLI_EPOCHS * (CLI_SPLITS["train"] // CLI_BATCH)
+    evals = CLI_EPOCHS * CLI_SPLITS["val"] + CLI_SPLITS["test"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = write_cohort(root, rng)
+        log(f"[cli_train] cohort written in {time.perf_counter() - t0:.2f} s")
+
+        def train(config: Path, log_dir: Path, *extra: str):
+            return quiet(cli.main, ["--config", str(config), "--log_dir", str(log_dir),
+                                    "--device", dev.type, *extra], tag="cli_train")
+
+        # run 1: the config as written (bfloat16; plain attention in training)
+        run1 = cli_config(root, "run1", data)
+        t0 = time.perf_counter()
+        summary1, launches = launch_counts(lambda: train(run1, root / "run1" / "log"))
+        run1_s = time.perf_counter() - t0
+        expect("run 1 (bf16, as written): fit + test", launches, 0, 2 * evals)
+        rows1 = metric_rows(root / "run1" / "log")
+        ckpts = sorted((root / "run1" / "log" / "checkpoints").glob("*.ckpt"))
+        tested, launches = launch_counts(lambda: train(run1, root / "run1" / "log",
+                                                       "--stage", "test"))
+        expect(f"run 1 --stage test over {len(ckpts)} checkpoints", launches, 0,
+               2 * CLI_SPLITS["test"] * len(ckpts))
+        if sorted(tested) != [c.name for c in ckpts]:
+            raise AssertionError(f"--stage test evaluated {sorted(tested)}, not {ckpts}")
+
+        # run 2: use_pallas, float32
+        run2 = cli_config(root, "run2", data, {"precision": 32}, {"use_pallas": True})
+        summary2, launches = launch_counts(lambda: train(run2, root / "run2" / "log"))
+        expect(f"run 2 (use_pallas, float32): fit + test, {micro // 2} optimizer steps", launches,
+               2 * micro, 2 * evals)
+        for name in launches:
+            results[name]["launches"] = launches[name]
+        rows2 = metric_rows(root / "run2" / "log")
+        kfold = cli_config(root, "kfold", {**data, "cross_val": True, "nfold": 2},
+                           {"precision": 32, "epochs": 1}, {"use_pallas": True})
+        ensemble, launches = launch_counts(lambda: train(kfold, root / "kfold" / "log"))
+        log(f"[cli_train] 2-fold run: ensemble AUC {ensemble['ensemble_auc']:.4f}, patient AUC "
+            f"{ensemble['ensemble_patient_auc']:.4f}, launches {launches}")
+        if not (root / "kfold" / "log" / "kfold" / "model.1.pt").exists():
+            raise AssertionError("the k-fold run wrote no second fold model")
+
+        # run 3: all plain, held to run 2
+        run3 = cli_config(root, "run3", data, {"precision": 32},
+                          {"use_pallas": False, "fused_inference": False})
+        summary3, launches = launch_counts(lambda: train(run3, root / "run3" / "log"))
+        expect("run 3 (all plain): fit + test", launches, 0, 0)
+        rows3 = metric_rows(root / "run3" / "log")
+        worst = max(abs(a[k] - b[k]) for a, b in zip(rows2, rows3)
+                    for k in ("loss", "val_loss", "val_auc", "val_patient_auc"))
+        worst = max(worst, *(abs(summary2[k] - summary3[k])
+                             for k in ("test_loss", "test_auc", "test_patient_auc")))
+        for label, rows in (("run 1 (bf16)", rows1), ("run 2 (kernels)", rows2),
+                            ("run 3 (plain)", rows3)):
+            for r in rows:
+                log(f"[cli_train] {label} epoch {r['step']}: " + ", ".join(
+                    f"{k} {r[k]:.6f}" for k in ("loss", "val_loss", "val_auc", "val_patient_auc",
+                                                "epoch_time_s")))
+        log(f"[cli_train] test AUC: run 1 {summary1['test_auc']:.4f}, run 2 "
+            f"{summary2['test_auc']:.4f}, run 3 {summary3['test_auc']:.4f}; run 1 fit + test "
+            f"{run1_s:.2f} s")
+        log(f"[cli_train] run 2 (kernels) vs run 3 (all plain): max |diff| of loss, val_loss, "
+            f"val AUCs and test metrics {worst:.3e} (tol 1e-4)")
+        if not (len(rows2) == len(rows3) == CLI_EPOCHS and worst <= 1e-4):
+            raise AssertionError("the kernel route's training disagrees with the all-plain route")
+
+        # bfloat16 against float32 at run 1's weights: eval bags (K1/K2) and
+        # one train-mode batch at 64 x 200, dropout off
+        cfg = finalize_config(read_yaml(run1), config_path=run1)
+        trainer = cli.build(cfg, str(root / "probe"), dev.type)
+        weights = read_checkpoint(root / "run1" / "log" / "checkpoints" / "last.ckpt")["model"]
+        model16 = trainer.model
+        model16.load_state_dict(weights)
+        model32 = create_model("TransMIL", 2, 2048, device=dev)
+        model32.load_state_dict(weights)
+        gaps = []
+        with torch.inference_mode():
+            for batch in list(trainer.dm.eval_batches("val"))[:16]:
+                bags = torch.from_numpy(batch.bags).to(dev)
+                gaps.append((model16.eval()(bags) - model32.eval()(bags)).abs().max().item())
+            batch = next(iter(trainer.dm.train_batches(0)))
+            bags = torch.from_numpy(batch.bags).to(dev)
+            for m in (model16, model32):
+                m.train()
+                for mod in m.modules():
+                    if isinstance(mod, torch.nn.Dropout):
+                        mod.eval()
+            train_gap = (model16(bags) - model32(bags)).abs().max().item()
+        log(f"[cli_train] bf16 vs float32 at run 1's weights: eval bags max |dlogit| "
+            f"{max(gaps):.3e}, train batch ({CLI_BATCH} x {CLI_BAG}) {train_gap:.3e} "
+            f"(bar {BF16_BAR})")
+        if not max(max(gaps), train_gap) <= BF16_BAR:
+            raise AssertionError("bfloat16 is outside its bar against float32")
+
+        # the step at 64 x 200, bf16 as written and float32 with use_pallas
+        batches = [b for e in range(1 + TIMED_STEPS) for b in trainer.dm.train_batches(e)]
+        time_steps(trainer, batches, "bf16 (as written)")
+        cfg2 = finalize_config(read_yaml(run2), config_path=run2)
+        time_steps(cli.build(cfg2, str(root / "probe2"), dev.type), batches, "float32, use_pallas")
+
+        # one epoch's train batches: per-file .npy reads against the bag store
+        dm = trainer.dm
+        t0 = time.perf_counter()
+        files = list(dm.train_batches(0))
+        files_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dm.enable_bagstore(str(root / "train.bags"))
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stored = list(dm.train_batches(0))
+        store_s = time.perf_counter() - t0
+        if [b.names for b in files] != [b.names for b in stored]:
+            raise AssertionError("the bag store's epoch draws other slides")
+        log(f"[cli_train] one epoch's {len(files)} train batches of {CLI_BATCH} x {CLI_BAG}: .npy "
+            f"files {files_s:.3f} s, bag store {store_s:.3f} s (packing the store once "
+            f"{pack_s:.2f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -1349,6 +1639,9 @@ def main() -> int:
     phase_serve(rng, results, dev, variables, tiles_u8, calib)
     phase_train(results, dev)
     log(f"[env] Nystrom, serve and training phases {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    phase_cli_train(rng, results, dev)
+    log(f"[env] cli_train phase {time.perf_counter() - t_new:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

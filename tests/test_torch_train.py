@@ -121,8 +121,11 @@ def test_batches_are_byte_identical_to_jax():
             assert (jb.names, jb.patients) == (tb.names, tb.patients)
             assert jb.padded_coords.tobytes() == tb.padded_coords.tobytes()
     assert jdm.steps_per_epoch() == tdm.steps_per_epoch()
-    with pytest.raises(NotImplementedError):
-        MILDataModule("/nonexistent", n_classes=2)
+    # feature bags from data_dir are ported; the other variants and Camelyon are not
+    for over in ({"variant": "spatial"}, {"variant": "images"}, {"variant": "tiles"},
+                 {"variant": "image_bags"}, {"dataset_name": "camelyon"}):
+        with pytest.raises(NotImplementedError):
+            MILDataModule("/nonexistent", n_classes=2, **over)
 
 
 # -------------------------------------------------------------- optimizer
@@ -248,8 +251,9 @@ def test_fit_matches_the_jax_trainer(tmp_path):
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tdm = _modules()
     model = create_model("TransMIL", N_CLS, IN_F, OUT_F, device="cpu")
-    for over in ({"swa": True}, {"autosave_steps": 5}, {"use_tensorboard": True}):
-        with pytest.raises(NotImplementedError):
+    for over in ({"swa": True}, {"autosave_steps": 5}, {"use_tensorboard": True},
+                 {"tile_level": True}, {"ckpt_backend": "orbax"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             Trainer(model, create_optimizer(), tdm, n_classes=N_CLS,
                     loss_fn=tlosses.create_loss(),
                     config=TrainerConfig(log_dir=str(tmp_path), **over))

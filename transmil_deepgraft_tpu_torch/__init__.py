@@ -11,10 +11,11 @@ The TPU kernels on the serving path are CUDA C++: the fused TransLayer's
 compiled with ``nvcc`` at first use into ``build/torch_kernels/`` and called
 through ``ctypes``.
 
-The command-line entry points are ``cli.export_model``, ``cli.serve`` and
-``cli.infer``. Slide tiles decode with the JAX package's threaded libjpeg
-loader, of which ``native/tileloader.cpp`` is a copy that ``g++`` builds into
-``build/native/`` at first use, or with PIL where it cannot build.
+The command-line entry points are ``cli.export_model``, ``cli.serve``,
+``cli.infer`` and ``cli.train``. Slide tiles decode with the JAX package's
+threaded libjpeg loader, of which ``native/tileloader.cpp`` is a copy that
+``g++`` builds into ``build/native/`` at first use, or with PIL where it
+cannot build; the bag store's ``native/bagstore.cpp`` is built the same way.
 
 Entry points take ``device=None`` (``--device`` on the command line), which
 means ``"cuda"``; without a card they raise unless ``device="cpu"`` is passed.

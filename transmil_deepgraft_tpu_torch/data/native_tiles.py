@@ -40,27 +40,28 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 log = logging.getLogger(__name__)
 
 
-def library_path() -> Path:
-    """Where ``libtileloader.so`` for the current source and flags lives."""
+def library_path(source: Path = SOURCE) -> Path:
+    """Where ``lib<source stem>.so`` for the current source and flags lives
+    (the tile loader's by default; ``data/bagstore.py`` builds its own)."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / "libtileloader.so"
+    digest.update(source.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{source.stem}.so"
 
 
-def build() -> Path:
-    """Compile the loader if it is not built yet; raises with the compiler's
-    output when the build fails."""
-    so = library_path()
+def build(source: Path = SOURCE, libs: Sequence[str] = ("-ljpeg",)) -> Path:
+    """Compile ``source`` (the loader by default) if it is not built yet;
+    raises with the compiler's output when the build fails."""
+    so = library_path(source)
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", tmp, "-ljpeg"]
+    cmd = ["g++", *CXX_FLAGS, str(source), "-o", tmp, *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed on {SOURCE.name} (exit {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed on {source.name} (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     return so
 

@@ -13,6 +13,13 @@ the JAX package; with ``use_pallas=True`` their attention goes through the
 fused landmark kernels (B5/B6 on the card, analytic backward). ``return_attn=True`` also returns the layer-2 attention row
 for heatmaps, computed in O(N*m); ``attn_query='ref'`` reproduces the
 reference's ``padding+1`` row index, ``'cls'`` uses the true cls row.
+
+``dtype=torch.bfloat16`` (``create_model(precision='16-mixed')``) is the JAX
+model's mixed precision: the bag enters the fc1 MLP in bfloat16, and the
+Dense layers, the value residual and PPEG compute in bfloat16, while the
+residual stream is float32 from the cls-token concat on (jnp.concatenate
+promotes it, and so does the port). The kernels are the same: K1/K2 and
+B5/B6 take float32 operands (a bfloat16 qkv upcast, which is exact).
 """
 
 from __future__ import annotations
@@ -49,16 +56,17 @@ class TransMILAttention(NamedTuple):
 class TransMIL(nn.Module):
     def __init__(self, n_classes: int, in_features: int = 2048, out_features: int = 512,
                  attn_query: str = "ref", fused_inference: bool = True,
-                 use_pallas: Optional[bool] = None) -> None:
+                 use_pallas: Optional[bool] = None, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.out_features = out_features
         self.attn_query = attn_query
         self.fused_inference = fused_inference
-        self.pos_layer = PPEG(dim=out_features)
-        self._fc1 = make_fc1(in_features, out_features)
+        self.dtype = dtype
+        self.pos_layer = PPEG(dim=out_features, dtype=dtype)
+        self._fc1 = make_fc1(in_features, out_features, dtype)
         self.cls_token = nn.Parameter(torch.randn(1, 1, out_features))
-        self.layer1 = TransLayer(dim=out_features, use_pallas=use_pallas)
-        self.layer2 = TransLayer(dim=out_features, use_pallas=use_pallas)
+        self.layer1 = TransLayer(dim=out_features, use_pallas=use_pallas, dtype=dtype)
+        self.layer2 = TransLayer(dim=out_features, use_pallas=use_pallas, dtype=dtype)
         self.norm = nn.LayerNorm(out_features, eps=1e-5)
         self._fc = nn.Linear(out_features, n_classes)
 
@@ -79,10 +87,10 @@ class TransMIL(nn.Module):
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         if x.dim() == 2:
             x = x[None]
-        h = self._fc1(x.float())
+        h = self._fc1(x.to(self.dtype))
         n_tokens = h.shape[1]
         h, grid_h, grid_w = duplicate_pad_square(h)
-        h = torch.cat([self.cls_token.expand(h.shape[0], -1, -1), h], dim=1)
+        h = torch.cat([self.cls_token.expand(h.shape[0], -1, -1), h.float()], dim=1)
 
         fused = self.fused_inference and not self.training and not return_attn
         h, _ = self._run_layer(self.layer1, h, fused, None)

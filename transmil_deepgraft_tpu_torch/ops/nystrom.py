@@ -8,7 +8,10 @@ Semantics, as in the reference's ``nystrom_attention`` dependency:
   * ``out = softmax(q k_lm^T) @ pinv(softmax(q_lm k_lm^T)) @ (softmax(q_lm k^T) @ v)``
     with q pre-scaled by ``dim_head**-0.5``.
 
-Tensors are (b, h, n, d), as in the JAX package. The port computes in float32.
+Tensors are (b, h, n, d), as in the JAX package. Inputs in bfloat16 follow
+the JAX op's mixed precision: the products take bfloat16 operands (rounded
+where JAX casts) with float32 sums and results; softmax and the pinv run in
+float32. Float32 inputs compute in float32 throughout.
 """
 
 from __future__ import annotations
@@ -60,17 +63,24 @@ def nystrom_attention(
     m = num_landmarks
     if n % m != 0:
         raise ValueError(f"sequence length {n} not a multiple of landmarks {m}")
-    q, k, v = q.float() * d ** -0.5, k.float(), v.float()
-    q_lm = _segment_means(q, m)
-    k_lm = _segment_means(k, m)
+    dt = q.dtype
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        """Round to the input dtype, compute on in float32 (exact products)."""
+        return t.to(dt).float()
+
+    q = rnd(q * torch.tensor(d ** -0.5, dtype=dt))
+    k, v = k.float(), v.float()
+    q_lm = rnd(_segment_means(q, m))
+    k_lm = rnd(_segment_means(k, m))
 
     attn1 = torch.softmax(q @ k_lm.transpose(-1, -2), dim=-1)  # (b, h, n, m)
     attn2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)  # (b, h, m, m)
     attn3 = torch.softmax(q_lm @ k.transpose(-1, -2), dim=-1)  # (b, h, m, n)
     attn2_inv = newton_schulz_pinv(attn2, pinv_iterations)
 
-    left = attn1 @ attn2_inv  # (b, h, n, m)
-    out = left @ (attn3 @ v)
+    left = rnd(attn1) @ rnd(attn2_inv)  # (b, h, n, m)
+    out = rnd(left) @ rnd(rnd(attn3) @ v)
 
     cls_row = None
     if return_row_index is not None:

@@ -349,14 +349,18 @@ def _packed_forward(qkv, num_landmarks, pinv_iterations, scale):
         raise ValueError(f"sequence length {n} not a multiple of landmarks {m}")
     scale = d ** -0.5 if scale is None else scale
     seg = n // m
+    # a bfloat16 qkv goes through the kernels upcast (exact); what JAX hands
+    # its kernels in the input dtype (the landmarks, B) is rounded to it
+    dt = qkv.dtype
+    qkv = qkv.float()
     # landmarks (b, h, m, d): the q landmarks scaled after the mean
-    q_lm = (qkv[:, :, 0].float().reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2) * scale).contiguous()
-    k_lm = qkv[:, :, 1].float().reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2)
+    q_lm = qkv[:, :, 0].reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2) * scale
+    k_lm = qkv[:, :, 1].reshape(b, m, seg, h, d).mean(dim=2).transpose(1, 2)
     attn2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)
     attn2_inv = newton_schulz_pinv(attn2, pinv_iterations)
-    attn3_v = landmark_attention_packed(q_lm, qkv)
-    bmat = (attn2_inv @ attn3_v).contiguous()
-    return query_landmark_attention_packed(qkv, (k_lm * scale).contiguous(), bmat)
+    attn3_v = landmark_attention_packed(q_lm.to(dt).float().contiguous(), qkv)
+    bmat = (attn2_inv @ attn3_v).to(dt).float().contiguous()
+    return query_landmark_attention_packed(qkv, (k_lm * scale).to(dt).float().contiguous(), bmat)
 
 
 class _FusedPacked(torch.autograd.Function):
@@ -371,7 +375,7 @@ class _FusedPacked(torch.autograd.Function):
         (qkv,) = ctx.saved_tensors
         num_landmarks, pinv_iterations, scale = ctx.config
         d = qkv.shape[-1]
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        q, k, v = (qkv[:, :, i].float().transpose(1, 2) for i in range(3))
         ratio = 1.0 if scale is None else scale / d ** -0.5
         if scale is not None:  # the forward scaled q by `scale`, not d**-0.5: fold the ratio
             q = q * ratio
@@ -388,7 +392,8 @@ def nystrom_attention_fused_packed(qkv: torch.Tensor, num_landmarks: int = 256,
                                    scale: float | None = None) -> torch.Tensor:
     """Fused Nystrom attention over the packed (b, n, 3, h, d) qkv projection
     (B5 + B6 on the card); q is scaled by ``scale`` (default d**-0.5).
-    Returns (b, n, h, d) float32; its gradient is the analytic backward."""
+    Returns (b, n, h, d) float32 for a float32 or bfloat16 qkv; its gradient
+    is the analytic backward, in the dtype of qkv."""
     return _FusedPacked.apply(qkv, num_landmarks, pinv_iterations, scale)
 
 

@@ -20,7 +20,9 @@ The rules: ``radam`` (coupled L2 weight decay, then optax's
 ``rho_t``, eps outside the square root, ``rho_t`` and the bias corrections in
 float32), ``adam`` (coupled L2), ``adamw`` (decoupled), ``sgd`` (alias
 ``nesterov``) and ``momentum`` (coupled L2, optax's ``trace``). A ``lookahead_`` prefix
-wraps any of them; any other name raises ``KeyError``.
+wraps any of them; any other name raises ``KeyError`` (the other rules are
+ROADMAP A5). :func:`create_optimizer_from_config` reads a config's
+``Optimizer`` section.
 """
 
 from __future__ import annotations
@@ -175,11 +177,27 @@ def create_optimizer(opt: str = "lookahead_radam", lr: float = 2e-4, weight_deca
     name = parts[-1].removeprefix("fused") or parts[-1]
     name = {"nesterov": "sgd"}.get(name, name)  # the same rule under two names
     if name not in RULES:
-        raise KeyError(f"unknown optimizer '{opt}'; the port has {RULES} (with a lookahead_ prefix)")
+        raise KeyError(f"optimizer '{opt}' is not ported yet (ROADMAP A5); the port has "
+                       f"{RULES} (with a lookahead_ prefix)")
     return Optimizer(
         name, lr, weight_decay,
         betas=tuple(opt_betas) if opt_betas else (0.9, 0.999),
         eps=opt_eps if opt_eps is not None else 1e-8,
         momentum=momentum if momentum is not None else 0.9,
         lookahead=use_lookahead, grad_accum_steps=grad_accum_steps,
+    )
+
+
+def create_optimizer_from_config(optimizer_cfg, grad_accum_steps: int = 1) -> Optimizer:
+    """Build from a ``cfg.Optimizer`` section (``opt``, ``lr``, ``opt_eps``,
+    ``opt_betas``, ``momentum``, ``weight_decay``), with the JAX package's
+    defaults for the keys that are missing or null."""
+    return create_optimizer(
+        opt=str(optimizer_cfg.opt or "lookahead_radam"),
+        lr=float(optimizer_cfg.lr or 2e-4),
+        weight_decay=float(optimizer_cfg.weight_decay or 0.0),
+        momentum=optimizer_cfg.momentum or 0.9,
+        opt_eps=optimizer_cfg.opt_eps or None,
+        opt_betas=optimizer_cfg.opt_betas or None,
+        grad_accum_steps=grad_accum_steps,
     )

@@ -13,18 +13,28 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
 - early stopping on val_loss (``patience``, ``min_delta``); ReduceLROnPlateau
   with torch's semantics through the optimizer's ``lr_scale``
   (``reduce_lr_every``, ``reduce_lr_patience``, ``plateau_threshold``,
-  ``min_lr_scale``); top-k checkpoints plus ``last.ckpt``;
+  ``min_lr_scale``); top-k checkpoints plus ``last.ckpt``, the full train
+  state, which :meth:`Trainer.load_train_state` resumes;
+- SIGTERM/SIGINT during ``fit``: the step in flight finishes, ``last.ckpt``
+  gets the train state, and ``fit`` returns with ``preempted`` set;
 - ``metrics.jsonl`` / ``metrics.csv`` rows with the JAX Trainer's keys.
 
-Not ported yet (ROADMAP A5): SWA, autosave and preemption handling,
-TensorBoard, figures, the top-k attention tile export, tile-level
-aggregation, DTFD, coord-aware heads, meshes and prefetch threads.
+Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
+:meth:`Trainer.load_train_state` also read the flax-msgpack ``.ckpt`` files
+of the JAX Trainer.
+
+Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
+attention tile export, tile-level aggregation, DTFD, coord-aware heads,
+meshes and prefetch threads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
+import signal
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,7 +50,8 @@ from transmil_deepgraft_tpu_torch.train.aggregation import aggregate_patients
 from transmil_deepgraft_tpu_torch.train.losses import LossFn
 from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_report, youden_j_threshold
 from transmil_deepgraft_tpu_torch.train.optimizers import Optimizer
-from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager
+from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager, read_checkpoint
+from transmil_deepgraft_tpu_torch.utils.jax_params import optimizer_state_from_jax, state_dict_from_jax
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
 # Class names per task (ref ``code/utils/utils.py:37-53``), for the result CSVs.
@@ -61,12 +72,12 @@ LABEL_MAP: dict[str, dict[str, str]] = {
 
 @dataclass
 class TrainerConfig:
-    """The JAX Trainer's fields and defaults. ``handle_preemption``,
-    ``autosave_async``, ``prefetch_batches``, ``eval_fn_cache``,
-    ``epoch_figures`` and ``export_topk_tiles`` have no effect in the port;
-    ``swa``, ``autosave_steps``, ``use_tensorboard``, ``tile_level`` and
-    ``ckpt_backend='orbax'`` are refused (not ported yet). Checkpoints are
-    ``torch.save`` files whatever ``ckpt_backend`` says."""
+    """The JAX Trainer's fields and defaults. ``autosave_async``,
+    ``prefetch_batches``, ``eval_fn_cache``, ``epoch_figures`` and
+    ``export_topk_tiles`` have no effect in the port; ``swa``,
+    ``autosave_steps``, ``use_tensorboard``, ``tile_level`` and
+    ``ckpt_backend='orbax'`` are refused (not ported yet, ROADMAP A5).
+    Checkpoints are ``torch.save`` files whatever ``ckpt_backend`` says."""
 
     epochs: int = 200
     patience: int = 50
@@ -105,7 +116,11 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
                 "ckpt_backend='orbax'": cfg.ckpt_backend == "orbax"}
     asked = [name for name, on in unported.items() if on]
     if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        raise NotImplementedError(f"not ported yet (ROADMAP A5): {', '.join(asked)}")
+
+
+_FIT_START = {"epoch": 0, "best_val_loss": float("inf"), "epochs_since_best": 0,
+              "plateau_since_best": 0, "plateau_best": float("inf")}
 
 
 def _write_csv(path: Path, columns: dict[str, list], index: bool) -> None:
@@ -142,6 +157,8 @@ class Trainer:
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self.logger = MetricLogger(self.log_dir)
         self.ckpts = CheckpointManager(self.log_dir / "checkpoints")
+        self._resume_fit_state: Optional[dict] = None
+        self.preempted = False
         (self.log_dir / "run_meta.json").write_text(json.dumps({
             "model": model_name, "n_classes": n_classes,
             "config": {k: str(v) for k, v in vars(config).items()},
@@ -178,22 +195,72 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> dict[str, float]:
+        with self._preemption_guard():
+            return self._fit()
+
+    @contextlib.contextmanager
+    def _preemption_guard(self):
+        """SIGTERM/SIGINT during fit set ``_preempted``; the loop then saves
+        the train state and returns. Installed on the main thread only and
+        restored on exit; a second signal goes to the previous handler."""
+        self._preempted = self.preempted = False
+        if (not self.cfg.handle_preemption
+                or threading.current_thread() is not threading.main_thread()):
+            yield
+            return
+        prev = {}
+
+        def on_signal(signum, frame):
+            if self._preempted:
+                handler = prev.get(signum)
+                if callable(handler):
+                    handler(signum, frame)
+                else:
+                    raise KeyboardInterrupt
+            self._preempted = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev[sig] = signal.signal(sig, on_signal)
+        try:
+            yield
+        finally:
+            for sig, handler in prev.items():
+                signal.signal(sig, handler)
+
+    def _train_state(self, epoch: int, fit: dict) -> dict:
+        """What ``last.ckpt`` holds: weights, optimizer state, loop counters
+        (``epoch`` is the first epoch a resumed fit runs)."""
+        return {"model": self.model.state_dict(), "optimizer": self.tx.state_dict(),
+                "fit": {**fit, "epoch": epoch}}
+
+    def _preempt_return(self, history: dict, epoch: int, fit: dict, step: int = -1) -> dict:
+        self.ckpts.save_last(self._train_state(epoch, fit))
+        self.preempted = True
+        self.logger.log(epoch, {"event": "preempted", "step": step})
+        return {**history, "preempted": True}
+
+    def _fit(self) -> dict[str, float]:
         if not self.tx.params:  # the optimizer binds the weights as they are now
             self.tx.init(self.model.parameters())
-        best_val_loss, epochs_since_best = float("inf"), 0
-        # torch ReduceLROnPlateau state: bad scheduler STEPS and its own best
-        plateau_since_best, plateau_best = 0, float("inf")
-        lr_scale = self.tx.lr_scale
+        fit = {**_FIT_START, **(self._resume_fit_state or {})}
+        start_epoch = int(fit.pop("epoch"))
+        lr_scale = self.tx.lr_scale  # restored with the optimizer state on resume
         history: dict[str, float] = {}
         n_epochs = 1 if self.cfg.fast_dev_run else self.cfg.epochs
-        for epoch in range(n_epochs):
+        for epoch in range(start_epoch, n_epochs):
             t0 = time.time()
+            # the dropout stream of an epoch depends on the epoch alone, so a
+            # resumed run draws what a straight-through run draws
+            self.dropout_generator.manual_seed(
+                int(np.random.SeedSequence([self.cfg.seed + 1, epoch]).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
-            for batch in self.dm.train_batches(epoch):
+            for step, batch in enumerate(self.dm.train_batches(epoch)):
                 loss, probs = self.train_step(*self._batch_tensors(batch))
                 losses.append(loss)
                 train_probs.append(probs)
                 train_labels.append(batch.labels)
+                if self._preempted:
+                    return self._preempt_return(history, epoch, fit, step)
                 if self.cfg.fast_dev_run:
                     break
             train_loss = float(np.mean(np.asarray(losses, np.float32)))
@@ -215,36 +282,75 @@ class Trainer:
 
             # early stopping on val_loss, Lightning EarlyStopping semantics:
             # improvement iff current < best - min_delta
-            if val["loss"] < best_val_loss - self.cfg.min_delta:
-                best_val_loss, epochs_since_best = val["loss"], 0
+            if val["loss"] < fit["best_val_loss"] - self.cfg.min_delta:
+                fit["best_val_loss"], fit["epochs_since_best"] = val["loss"], 0
             else:
-                epochs_since_best += 1
-            stop = epochs_since_best >= self.cfg.patience
+                fit["epochs_since_best"] += 1
+            stop = fit["epochs_since_best"] >= self.cfg.patience
 
             # ReduceLROnPlateau, torch's semantics (relative threshold, the
             # scheduler's own best, reduce when bad steps exceed patience),
             # stepped every reduce_lr_every epochs
             if (epoch + 1) % self.cfg.reduce_lr_every == 0:
-                if val["loss"] < plateau_best * (1.0 - self.cfg.plateau_threshold):
-                    plateau_best, plateau_since_best = val["loss"], 0
+                if val["loss"] < fit["plateau_best"] * (1.0 - self.cfg.plateau_threshold):
+                    fit["plateau_best"], fit["plateau_since_best"] = val["loss"], 0
                 else:
-                    plateau_since_best += 1
-                if plateau_since_best > self.cfg.reduce_lr_patience and lr_scale > self.cfg.min_lr_scale:
+                    fit["plateau_since_best"] += 1
+                if (fit["plateau_since_best"] > self.cfg.reduce_lr_patience
+                        and lr_scale > self.cfg.min_lr_scale):
                     lr_scale = max(lr_scale * self.cfg.reduce_lr_factor, self.cfg.min_lr_scale)
                     self.tx.lr_scale = lr_scale
-                    plateau_since_best = 0
+                    fit["plateau_since_best"] = 0
 
-            weights = {"model": self.model.state_dict()}
             self.ckpts.save_epoch(
-                weights, epoch, {k: metrics[k] for k in ("val_loss", "val_auc", "val_accuracy")},
-                last_obj={**weights, "optimizer": self.tx.state_dict(), "fit": {
-                    "epoch": epoch + 1, "best_val_loss": best_val_loss,
-                    "epochs_since_best": epochs_since_best,
-                    "plateau_since_best": plateau_since_best, "plateau_best": plateau_best}},
+                {"model": self.model.state_dict()}, epoch,
+                {k: metrics[k] for k in ("val_loss", "val_auc", "val_accuracy")},
+                last_obj=self._train_state(epoch + 1, fit),
             )
+            if self._preempted:  # the end-of-epoch state is on disk already
+                self.preempted = True
+                self.logger.log(epoch, {"event": "preempted", "step": -1})
+                return {**history, "preempted": True}
             if stop:
                 break
         return history
+
+    # --------------------------------------------------------- checkpoints
+    def _in_features(self) -> int:
+        return self.model._fc1[0].in_features
+
+    def load_checkpoint(self, path: str | Path) -> None:
+        """Weights only, from any checkpoint of the port (``{"model": ...}``)
+        or of the JAX Trainer (flax msgpack ``{"params": ...}``, metric
+        checkpoints and ``last.ckpt`` alike)."""
+        obj = read_checkpoint(path)
+        if "model" in obj:
+            self.model.load_state_dict(obj["model"])
+        elif "params" in obj:
+            self.model.load_state_dict(state_dict_from_jax(obj["params"], self._in_features()))
+        else:
+            raise ValueError(f"no weights in checkpoint {path}")
+
+    def load_train_state(self, path: str | Path) -> bool:
+        """Restore a full train state (weights, optimizer state, epoch,
+        early-stop and plateau counters, lr_scale) written by ``fit``, the
+        port's or the JAX Trainer's; the next ``fit`` resumes from it.
+        Returns False when ``path`` holds weights only (those are loaded)."""
+        obj = read_checkpoint(path)
+        self.load_checkpoint(path)
+        if "fit" not in obj or not ("optimizer" in obj or "opt_state" in obj):
+            return False
+        self.tx.init(self.model.parameters())
+        if "optimizer" in obj:
+            state = obj["optimizer"]
+        else:
+            names = [n for n, _ in self.model.named_parameters()]
+            state = optimizer_state_from_jax(obj["opt_state"], self._in_features(), names)
+        self.tx.load_state_dict(state)
+        fit = obj["fit"]
+        self._resume_fit_state = {k: type(v)(np.asarray(fit[k])) for k, v in _FIT_START.items()
+                                  if k in fit}
+        return True
 
     # ------------------------------------------------------------------ eval
     def evaluate(self, mode: str, save_results: bool = False,

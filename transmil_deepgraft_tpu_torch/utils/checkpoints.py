@@ -5,11 +5,13 @@ As the reference's three ModelCheckpoint callbacks + save_last: keep the top
 (max), plus ``last``. A checkpoint is a ``torch.save`` file: the model's state
 dict for the metric-keyed ones, the full train state (model, optimizer, loop
 counters) for ``last.ckpt``. Filenames embed the epoch and the monitored
-metrics, like the reference's.
+metrics, like the reference's. :func:`read_checkpoint` reads these files and
+the JAX Trainer's flax-msgpack ones.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from dataclasses import dataclass, field
@@ -18,6 +20,9 @@ from typing import Any
 
 import torch
 
+from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+_ZIP_MAGIC = b"PK\x03\x04"  # torch.save writes a zip archive
 
 def save_checkpoint(path: str | Path, obj: Any) -> None:
     """Atomic save: the file lands in a ``.tmp`` sibling first and is swapped
@@ -27,6 +32,15 @@ def save_checkpoint(path: str | Path, obj: Any) -> None:
     tmp = path.with_name(path.name + ".tmp")
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def read_checkpoint(path: str | Path) -> dict:
+    """A checkpoint as a dict: a ``torch.save`` file of the port (tensors on
+    the CPU), or the JAX Trainer's flax msgpack tree (numpy leaves)."""
+    data = Path(path).read_bytes()
+    if data[:4] == _ZIP_MAGIC:
+        return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+    return read_flax_msgpack(data)
 
 
 @dataclass
@@ -70,11 +84,17 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.monitors = {name: Monitor(name, mode, k) for name, mode, k in monitors}
 
+    def last_path(self) -> Path:
+        return self.dir / "last.ckpt"
+
+    def save_last(self, obj: Any) -> None:
+        save_checkpoint(self.last_path(), obj)
+
     def save_epoch(self, obj: Any, epoch: int, metrics: dict[str, float],
                    last_obj: Any = None) -> list[str]:
         """Save ``last`` (``last_obj``, default ``obj``) and any checkpoint a
         monitor keeps; returns the names saved."""
-        save_checkpoint(self.dir / "last.ckpt", last_obj if last_obj is not None else obj)
+        self.save_last(last_obj if last_obj is not None else obj)
         (self.dir / "last.json").write_text(json.dumps({"epoch": epoch, **metrics}))
         saved = ["last.ckpt"]
 

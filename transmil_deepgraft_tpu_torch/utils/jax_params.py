@@ -131,9 +131,9 @@ def qresnet_from_jax(q: Any):
 
 
 def _optax_fields(node: Any, found: dict) -> None:
-    """Collect the fields of the optax states in ``node`` (NamedTuples, the
-    ``{'lr_scale': x}`` dict, tuples of chained states); the first of each
-    name wins, outermost first."""
+    """Collect the fields of the optax states in ``node`` (NamedTuples or
+    their msgpack maps, the ``{'lr_scale': x}`` dict, tuples of chained
+    states); the first of each name wins, outermost first."""
     if hasattr(node, "_asdict"):
         fields = node._asdict()
         for key, value in fields.items():
@@ -142,6 +142,11 @@ def _optax_fields(node: Any, found: dict) -> None:
             _optax_fields(value, found)
     elif isinstance(node, Mapping) and set(node) == {"lr_scale"}:
         found.setdefault("lr_scale", node["lr_scale"])
+    elif isinstance(node, Mapping):  # a state as flax msgpack writes it: a map of its fields
+        for key, value in node.items():
+            found.setdefault(key, value)
+        for value in node.values():
+            _optax_fields(value, found)
     elif isinstance(node, (list, tuple)):
         for value in node:
             _optax_fields(value, found)
@@ -149,7 +154,8 @@ def _optax_fields(node: Any, found: dict) -> None:
 
 def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str]) -> dict:
     """The optax state of the JAX package's ``create_optimizer`` (numpy
-    leaves, e.g. after ``jax.device_get``) -> a state for the port's
+    leaves, e.g. after ``jax.device_get``, or the ``opt_state`` map of a JAX
+    ``last.ckpt``) -> a state for the port's
     ``Optimizer.load_state_dict``, each per-parameter list ordered as
     ``names`` (the model's ``named_parameters`` order).
 
