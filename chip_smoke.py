@@ -64,7 +64,24 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    2 within 1e-4), bf16 against float32 at run 1's weights (within 5e-2),
    exact launch counts of B5/B6 and K1/K2 on each run, the optimizer step at
    64 x 200 by part with the device's busy share (torch.profiler), and one
-   epoch's train batches from the .npy files against the bag store.
+   epoch's train batches from the .npy files against the bag store;
+11. the MIL heads the configs train besides TransMIL: the five frozen
+   torch-parity fixtures of AttMIL, TransformerMIL and Chowder; the dense
+   attention's card path (``scaled_dot_product_attention``) against its
+   plain formula at (1, 8, 65,537, 64) and (128, 8, 1,001, 64); feature bags
+   of 300, 12,000 and 40,960 tiles through ServingBundle + MicroBatcher of
+   AttMIL-2048, TransformerMIL (512 -> 1,024), RoFormerMIL-2048 with slide
+   coordinates (exact to 12,000 tiles, 256 landmarks at 40,960), Chowder-512
+   and AttTrans-512, the heads with a card route of their own (the dense
+   attention's) held to their plain route within 1e-4 up to 12,000 tiles;
+   ``cli.train`` of AttMIL_feat_norm_rest.yaml, TransformerMIL_feat_norm_rest
+   .yaml (held to its all-plain route within 1e-4) and
+   synthetic_roformer_norm_rest.yaml, as written but for paths and 2 epochs,
+   with the optimizer step at each config's batch; ``cli.export_model`` of
+   AttMIL and RoFormerMIL, ``cli.serve``'s /predict with coords, and
+   ``cli.infer --model RoFormerMIL`` on 256 JPEG tiles named with their
+   coordinates, within 1e-3 of the in-process slide bundle. No head runs one
+   of the eight kernels; the launch counts of every route are checked.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -134,6 +151,33 @@ CLI_BATCH, CLI_BAG = 64, 200  # the config's train batch and bag_size
 CLI_N = 256  # a 200-tile bag: 15^2 grid + cls, landmark-padded
 BF16_BAR = 5e-2  # the bfloat16 bar's cap per logit (PERF.md section 2)
 TIMED_STEPS = 6  # optimizer steps timed at 64 x 200 after a warm-up one
+# the heads phase: the configs' heads at full width, from seeded random weights
+HEAD_FIXTURES = ("attmil_2048", "attmil_1024", "transformer_mil_2048", "transformer_mil_1024",
+                 "chowder")
+HEAD_TILES = (300, 12000, 40960)
+# label: (Model.name, in_features, out_features, knobs, bag sizes, whether the
+# head's path has a card route of its own: the dense attention's)
+HEAD_SERVED = {
+    "AttMIL-2048": ("AttMIL", 2048, 512, {}, HEAD_TILES, False),
+    "TransformerMIL-512": ("TransformerMIL", 512, 1024, {}, HEAD_TILES, True),  # retccl's
+    "RoFormerMIL-2048 exact": ("RoFormerMIL", 2048, 512, {}, HEAD_TILES[:2], True),
+    "RoFormerMIL-2048 landmarks 256": ("RoFormerMIL", 2048, 512, {"num_landmarks": 256},
+                                       HEAD_TILES[2:], False),
+    "Chowder-512": ("Chowder", 512, 512, {}, HEAD_TILES, False),
+    "AttTrans-512": ("AttTrans", 512, 512, {}, HEAD_TILES, True),
+}
+# the requests held to the plain route: up to 12,000 tiles (the dense
+# attention itself is held at 40,960 tiles' 65,537 tokens in DENSE_SHAPES)
+HEAD_HELD_TILES = 12000
+# the dense attention at the served bags' widest token count (40,960 tiles:
+# bucket 65,536 + the cls token) and at TransformerMIL_feat's train batch
+DENSE_SHAPES = ((1, 65537), (128, 1001))
+HEAD_CONFIGS = ("DeepGraft/AttMIL_feat_norm_rest.yaml",
+                "DeepGraft/TransformerMIL_feat_norm_rest.yaml",
+                "synthetic_roformer_norm_rest.yaml")
+HEAD_SPLITS = {2048: {"train": 32, "val": 16, "test": 16},
+               768: {"train": 128, "val": 16, "test": 16}}  # one micro-step of 128 an epoch
+HEAD_STEPS = 3  # optimizer steps timed a config after a warm-up one
 
 
 def log(msg: str) -> None:
@@ -1333,21 +1377,24 @@ def phase_train(results: dict, dev) -> None:
         raise AssertionError("the 40,960-tile step missed the kernels or gave non-finite grads")
 
 
-def write_cohort(root: Path, rng) -> dict:
-    """The cli_train cohort under ``root``: per-slide 2048-d float32 .npy
-    bags (a class signal on 64 features), a label JSON whose paths carry
+def write_cohort(root: Path, rng, dim: int = 2048, splits: dict | None = None,
+                 tag: str = "cli_train") -> dict:
+    """A cohort under ``root``: per-slide ``dim``-d float32 .npy bags of
+    ``CLI_TILES`` tiles (a class signal on 64 features), ``splits`` (default
+    ``CLI_SPLITS``) slides a split, a label JSON whose paths carry
     ``FEATURES_RETCCL_2048``, a patient map of two slides (one label) a
     patient. Returns the config's ``Data`` paths."""
     import numpy as np
 
+    splits = splits or CLI_SPLITS
     data = root / "data" / "FEATURES_RETCCL_2048"
     data.mkdir(parents=True)
     labels, patients, total = {}, {}, 0
-    for split, count in CLI_SPLITS.items():
+    for split, count in splits.items():
         labels[split] = []
         for i in range(count):
             name, y = f"{split}_{i:03d}", (i // 2) % 2
-            x = rng.standard_normal((int(rng.integers(CLI_TILES[0], CLI_TILES[1] + 1)), 2048),
+            x = rng.standard_normal((int(rng.integers(CLI_TILES[0], CLI_TILES[1] + 1)), dim),
                                     dtype=np.float32)
             x[:, :64] += 0.25 * y
             np.save(data / f"{name}.npy", x)
@@ -1356,8 +1403,8 @@ def write_cohort(root: Path, rng) -> dict:
             patients[name] = f"{split}_patient_{i // 2:03d}"
     (root / "labels.json").write_text(json.dumps(labels))
     (root / "patients.json").write_text(json.dumps(patients))
-    log(f"[cli_train] cohort: {sum(CLI_SPLITS.values())} slides of {CLI_TILES[0]}-"
-        f"{CLI_TILES[1]} tiles, {total / 2**30:.2f} GiB of .npy")
+    log(f"[{tag}] cohort: {sum(splits.values())} slides of {CLI_TILES[0]}-{CLI_TILES[1]} "
+        f"tiles x {dim}, {total / 2**30:.2f} GiB of .npy")
     return {"data_dir": str(root / "data"), "label_file": str(root / "labels.json"),
             "patient_dict": str(root / "patients.json")}
 
@@ -1601,6 +1648,380 @@ def phase_cli_train(rng, results: dict, dev) -> None:
             f"{pack_s:.2f} s)")
 
 
+def head_bags(rng, n: int, dim: int):
+    """A feature bag of ``n`` tiles and its slide coordinates: distinct grid
+    positions in a tissue region away from the origin."""
+    import numpy as np
+
+    side = int(np.ceil(np.sqrt(1.5 * n)))
+    cells = rng.choice(side * side, n, replace=False)
+    coords = np.stack([cells % side, cells // side], axis=-1).astype(np.float32) + [1200, 800]
+    return rng.standard_normal((n, dim), dtype=np.float32), coords
+
+
+def random_head_params(name: str, in_features: int, out_features: int, knobs: dict,
+                       seed: int) -> dict:
+    """A head's flax-layout params from its seeded PyTorch init (on the CPU),
+    through the reference converter of its state dict."""
+    import torch
+
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.utils.torch_weights import convert_head_state_dict
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = create_model(name, 2, in_features, out_features, device="cpu", **knobs)
+    return convert_head_state_dict(model.state_dict(), name, in_features)["params"]
+
+
+def heads_config(root: Path, name: str, config: str, data: dict | None = None,
+                 model: dict | None = None) -> Path:
+    """A repository config as written but for its paths, log path and
+    ``CLI_EPOCHS`` epochs, under ``root/name/`` with its own file name."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "transmil_deepgraft_tpu" / "configs" / config).read_text())
+    cfg["Data"].update(data or {})
+    cfg["General"].update({"log_path": str(root / "logs"), "epochs": CLI_EPOCHS})
+    cfg["Model"].update(model or {})
+    path = root / name / Path(config).parent.name / Path(config).name
+    path.parent.mkdir(parents=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def head_step_ms(trainer, batches: list) -> tuple[float, float]:
+    """(median ms, min ms) of one optimizer step at the config's batch: the
+    grad_acc micro-batches ``batches``, staged on the device once, stepped
+    ``HEAD_STEPS`` times after a warm-up step, host clock with the device
+    synchronized."""
+    import numpy as np
+
+    dev = trainer.device
+    trainer.tx.init(trainer.model.parameters())
+    staged = [(*trainer._batch_tensors(b), trainer._batch_coords(b)) for b in batches]
+    steps = []
+    for _ in range(1 + HEAD_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        for bags, labels, coords in staged:
+            trainer.train_step(bags, labels, coords)
+        sync(dev)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    steps = steps[1:]
+    return float(np.median(steps)), float(min(steps))
+
+
+def phase_heads(rng, results: dict, dev, variables) -> None:
+    """The MIL heads the configs train besides TransMIL, on the card: the
+    five frozen torch-parity fixtures; feature bags of 300, 12,000 and
+    40,960 tiles through ServingBundle + MicroBatcher of AttMIL-2048,
+    TransformerMIL (512 -> 1024), RoFormerMIL-2048 with slide coordinates
+    (exact up to 12,000 tiles, 256 landmarks at 40,960), Chowder-512 and
+    AttTrans-512, the requests of the heads with a card route of their own
+    (TransformerMIL, exact RoFormerMIL, AttTrans) held to the plain route
+    up to 12,000 tiles;
+    the dense attention's card path (scaled_dot_product_attention) against
+    its plain version; ``cli.train`` of AttMIL_feat_norm_rest.yaml,
+    TransformerMIL_feat_norm_rest.yaml (held to its all-plain route) and
+    synthetic_roformer_norm_rest.yaml cut to 2 epochs, with the optimizer
+    step at each config's batch; ``cli.export_model`` of AttMIL and
+    RoFormerMIL, ``cli.serve``'s /predict with coords and ``cli.infer
+    --model RoFormerMIL`` on JPEG tiles named with their coordinates. None
+    of the eight kernels is on a head's path (the backbone's B7/B8 are, in
+    cli.infer): the launch counts of each route are checked."""
+    import io
+    import threading
+    from itertools import chain, islice
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from transmil_deepgraft_tpu_torch.cli import export_model, infer
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.cli.serve import make_server
+    from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
+    from transmil_deepgraft_tpu_torch.inference import decode_tile_paths
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.ops.attention import plain_route, softmax_attention
+    from transmil_deepgraft_tpu_torch.serving import (
+        MicroBatcher, ServingBundle, export_serving_bundle)
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+    from transmil_deepgraft_tpu_torch.utils.jax_params import head_state_dict_from_jax, unflatten
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def part(name: str) -> None:
+        """Close the phase's part ``name``: its seconds since the last one."""
+        now = time.perf_counter()
+        parts[name] = now - sum(parts.values()) - t_phase
+
+    def all_counts(run):
+        """(run's result, the launches of all eight kernels during it)."""
+        from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+        from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+        from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+
+        for mod in (nk, qk, tk):
+            mod.reset_launch_counts()
+        out = run()
+        return out, {**nk.LAUNCHES, **qk.LAUNCHES, **tk.LAUNCHES}
+
+    def expect_none(label: str, got: dict, **want) -> None:
+        wanted = {k: want.get(k, 0) for k in got}
+        if got != wanted:
+            raise AssertionError(f"[heads] {label}: expected launches {wanted}, got {got}")
+
+    # 1. the frozen torch-parity fixtures on the card
+    for fixture in HEAD_FIXTURES:
+        name = {"attmil": "AttMIL", "transformer": "TransformerMIL", "chowder": "Chowder"}[
+            fixture.split("_")[0]]
+        with np.load(ROOT / "tests" / "fixtures" / f"parity_{fixture}.npz") as z:
+            params = unflatten({k[6:]: z[k] for k in z.files if k.startswith("param:")})
+            bag, want = z["bag"], z["out:logits"]
+        model = create_model(name, want.shape[-1], bag.shape[-1], device=dev)
+        model.load_state_dict(head_state_dict_from_jax(name, params, bag.shape[-1]))
+        with torch.inference_mode():
+            got = model.eval()(torch.from_numpy(bag).to(dev)).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        log(f"[heads] fixture parity_{fixture} ({name}, {bag.shape[0]} tiles x "
+            f"{bag.shape[1]}): max|dlogit| {err:.3e} vs the recorded torch reference (tol {TOL})")
+        if not err <= TOL:
+            raise AssertionError(f"fixture {fixture} disagrees: {err}")
+    part("fixtures")
+
+    # 2. the dense attention: the card path against its plain version
+    for b, n in DENSE_SHAPES:
+        q, k, v = (torch.randn(b, 8, n, 64, device=dev) for _ in range(3))
+        outs: list = []
+        card_ms = cuda_ms(lambda: outs.append(softmax_attention(q, k, v, 0.125)), reps=3,
+                          warmup=0)
+        with plain_route():  # one call: the plain formula at 65,537 tokens takes 0.6 s
+            plain_ms = cuda_ms(lambda: outs.append(softmax_attention(q, k, v, 0.125)), reps=1,
+                               warmup=0)
+        card, plain = outs[0], outs[-1]
+        err = float((card - plain).abs().max())
+        log(f"[heads] dense attention ({b}, 8, {n}, 64): scaled_dot_product_attention "
+            f"{card_ms:.3f} ms, plain blocked formula {plain_ms:.3f} ms, max|diff| {err:.3e} "
+            f"(tol {SPLIT_TOL})")
+        if not err <= SPLIT_TOL:
+            raise AssertionError(f"the dense attention's card path disagrees: {err}")
+        del q, k, v, outs, card, plain
+    part("dense attention")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 3. feature bags through ServingBundle + MicroBatcher; the bags of a
+        # width are drawn once and served to each head of that width
+        bags: dict = {}
+        for i, (label, (name, in_f, out_f, knobs, sizes, card_route)) in enumerate(
+                HEAD_SERVED.items()):
+            t0 = time.perf_counter()
+            params = random_head_params(name, in_f, out_f, knobs, seed=100 + i)
+            path = tmp / f"head{i}.tdx"
+            export_serving_bundle(params, path, model_name=name, in_features=in_f, n_classes=2,
+                                  buckets=SMOKE_BUCKETS, knobs=knobs)
+            bundle = ServingBundle.load(path, device=dev)
+            batcher = MicroBatcher(bundle)
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for n in sizes:
+                if (n, in_f) not in bags:
+                    bags[n, in_f] = head_bags(rng, n, in_f)
+            bags_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                warm, warm_c = bags[sizes[0], in_f]
+                batcher.predict_logits(warm, warm_c if bundle.coord_aware else None)
+                for n in sizes:
+                    bag, coords = bags[n, in_f]
+                    c = coords if bundle.coord_aware else None
+                    sync(dev)
+                    t1 = time.perf_counter()
+                    (logits, launches) = all_counts(lambda: batcher.predict_logits(bag, c))
+                    ms = (time.perf_counter() - t1) * 1e3
+                    expect_none(f"{label} request", launches)
+                    if not (logits.shape == (1, 2) and np.isfinite(logits).all()):
+                        raise AssertionError(f"{label} at {n} tiles: {logits}")
+                    held = ("no card route of its own: its plain route is the same code"
+                            if not card_route else
+                            "the dense attention at this size is held in step 2")
+                    if card_route and n <= HEAD_HELD_TILES:
+                        sync(dev)
+                        t1 = time.perf_counter()
+                        with plain_route():
+                            plain = bundle.predict_logits(bag, c)
+                        plain_ms = (time.perf_counter() - t1) * 1e3
+                        err = float(np.abs(plain - logits).max())
+                        held = (f"plain route {plain_ms:.2f} ms, max|dlogit| vs the plain "
+                                f"route {err:.3e} (tol {SPLIT_TOL})")
+                        if not err <= SPLIT_TOL:
+                            raise AssertionError(f"{label} at {n} tiles: the card route "
+                                                 f"disagrees: {err}")
+                    log(f"[heads] {label}, {n} tiles{' with coords' if c is not None else ''}: "
+                        f"{ms:.2f} ms a request, logits {logits.ravel().tolist()}; {held}")
+                    if n == sizes[0] and bundle.coord_aware:  # the coords reach the head
+                        moved = float(np.abs(batcher.predict_logits(bag) - logits).max())
+                        if not moved > 1e-6:
+                            raise AssertionError(f"{label}: coords do not change the logits")
+            finally:
+                batcher.close()
+            log(f"[heads] {label}: params, export and load {setup_s:.2f} s, drawing its bags "
+                f"{bags_s:.2f} s, requests {time.perf_counter() - t0:.2f} s")
+            del bundle, batcher
+            torch.cuda.empty_cache()
+        del bags
+        part("feature bags")
+
+        # 4. cli.train on the repository's configs, 2 epochs each
+        def train(config: Path, log_dir: Path, *extra: str):
+            return quiet(cli.main, ["--config", str(config), "--log_dir", str(log_dir),
+                                    "--device", dev.type, *extra], tag="heads")
+
+        cohorts = {dim: write_cohort(tmp / f"cohort{dim}", rng, dim, splits, tag="heads")
+                   for dim, splits in HEAD_SPLITS.items()}
+        part("cohorts")
+        for config in HEAD_CONFIGS:
+            raw = read_yaml(ROOT / "transmil_deepgraft_tpu" / "configs" / config)
+            synthetic = bool(raw.Data.synthetic)
+            data = None if synthetic else cohorts[int(raw.Model.in_features)]
+            path = heads_config(tmp, Path(config).stem, config, data)
+            t0 = time.perf_counter()
+            summary, launches = all_counts(lambda: train(path, tmp / Path(config).stem / "log"))
+            fit_s = time.perf_counter() - t0
+            expect_none(f"cli.train {config}", launches)
+            rows = metric_rows(tmp / Path(config).stem / "log")
+            t0 = time.perf_counter()
+            cfg = finalize_config(read_yaml(path), config_path=path)
+            trainer = cli.build(cfg, str(tmp / Path(config).stem / "probe"), dev.type)
+            if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+                raise AssertionError(f"{config}: the head is not float32")
+            epochs = chain.from_iterable(trainer.dm.train_batches(e) for e in range(1000))
+            batches = list(islice(epochs, trainer.tx.grad_accum_steps))
+            step_ms, step_min = head_step_ms(trainer, batches)
+            batch = batches[0].bags.shape
+            log(f"[heads] cli.train {config} ({raw.Model.name}, precision "
+                f"{raw.General.precision or 32} -> float32, batch {batch[0]} x {batch[1]} x "
+                f"{batch[2]}, grad_acc {trainer.tx.grad_accum_steps}): {CLI_EPOCHS} epochs + "
+                f"test {fit_s:.2f} s; " + "; ".join(
+                    f"epoch {r['step']} loss {r['loss']:.6f} val_loss {r['val_loss']:.6f} "
+                    f"val_auc {r['val_auc']:.4f}" for r in rows)
+                + f"; test_auc {summary['test_auc']:.4f}; optimizer step median {step_ms:.2f} "
+                f"ms (min {step_min:.2f}) of {HEAD_STEPS} (timing them "
+                f"{time.perf_counter() - t0:.2f} s)")
+            if len(rows) != CLI_EPOCHS or not np.isfinite(summary["test_loss"]):
+                raise AssertionError(f"{config}: {rows}, {summary}")
+            if raw.Model.name == "TransformerMIL":  # its card path against the plain route
+                with plain_route():
+                    summary_p = train(path, tmp / Path(config).stem / "plain")
+                rows_p = metric_rows(tmp / Path(config).stem / "plain")
+                worst = max(abs(a[k] - b[k]) for a, b in zip(rows, rows_p)
+                            for k in ("loss", "val_loss", "val_auc", "val_patient_auc"))
+                worst = max(worst, *(abs(summary[k] - summary_p[k])
+                                     for k in ("test_loss", "test_auc", "test_patient_auc")))
+                log(f"[heads] {config}: scaled_dot_product_attention vs the all-plain route, "
+                    f"max |diff| of loss, val_loss, val AUCs and test metrics {worst:.3e} "
+                    f"(tol 1e-4)")
+                if not (len(rows_p) == CLI_EPOCHS and worst <= 1e-4):
+                    raise AssertionError(f"{config}: the card path's training disagrees")
+            del trainer, batches
+            torch.cuda.empty_cache()
+        part("cli.train")
+
+        # 5. the entry points: cli.export_model, cli.serve, cli.infer
+        sds = {}
+        for name in ("AttMIL", "RoFormerMIL"):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(7)
+                sds[name] = create_model(name, 2, 2048, device="cpu").state_dict()
+            torch.save(sds[name], tmp / f"{name}.pth")
+            quiet(export_model.main, ["--model", name, "--ckpt", str(tmp / f"{name}.pth"),
+                                      "--out", str(tmp / f"{name}.tdx"), "--buckets",
+                                      ",".join(map(str, SMOKE_BUCKETS))], tag="heads")
+        bag, coords = head_bags(rng, SERVE_BAG, 2048)
+        for name in ("AttMIL", "RoFormerMIL"):
+            bundle = ServingBundle.load(tmp / f"{name}.tdx", device=dev)
+            c = coords if bundle.coord_aware else None
+            want = bundle.predict_logits(bag, c)
+            srv = make_server(bundle, "127.0.0.1", 0)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            try:
+                port = srv.server_address[1]
+                buf = io.BytesIO()
+                np.savez(buf, features=bag, coords=coords)
+                body = buf.getvalue()
+                t0 = time.perf_counter()
+                status, doc, _ = http(port, "POST", "/predict", body)
+                ms = (time.perf_counter() - t0) * 1e3
+                if bundle.coord_aware:
+                    err = float(np.abs(np.asarray(doc.get("logits")) - want).max())
+                    log(f"[heads] cli.serve {name} /predict, {SERVE_BAG} tiles with coords "
+                        f"(.npz, {len(body) / 1e6:.1f} MB): {ms:.2f} ms, max|dlogit| vs "
+                        f"in-process {err:.3e} (tol 1e-5)")
+                    if status != 200 or not err <= 1e-5:
+                        raise AssertionError(f"/predict with coords: {status} {err}")
+                else:
+                    log(f"[heads] cli.serve {name} /predict with coords: {status} "
+                        f"{doc.get('error', '')[:60]}")
+                    if status != 400:
+                        raise AssertionError(f"{name} took coords: {status}")
+                    status, doc, _ = http(port, "POST", "/predict", npy(bag))
+                    err = float(np.abs(np.asarray(doc.get("logits")) - want).max())
+                    if status != 200 or not err <= 1e-5:
+                        raise AssertionError(f"{name} /predict: {status} {err}")
+            finally:
+                srv.shutdown()
+                srv.server_close()
+        part("export, serve")
+
+        if DISK_TILES not in SMOKE_BUCKETS:  # the bundle's bag is then cli.infer's, unpadded
+            raise AssertionError(f"DISK_TILES {DISK_TILES} is not a serving bucket")
+        slide = tmp / "tiles" / "slideR"
+        slide.mkdir(parents=True)
+        for t in range(DISK_TILES):
+            x, y = 400 + t % 16 + (t // 64), 900 + t // 16
+            Image.fromarray(rng.integers(0, 256, (TILE, TILE, 3), dtype=np.uint8)).save(
+                slide / f"tile_({x}-{y}).jpg", quality=90)
+        paths = sorted(slide.glob("*.jpg"))  # cli.infer's order
+        tiles = decode_tile_paths(paths, TILE)
+        np.save(tmp / "calib.npy", imagenet_normalize(tiles[:64]))  # cli.infer's calibration
+        torch.save(torchvision_state_dict(variables), tmp / "backbone.pth")
+        quiet(export_model.main, ["--model", "RoFormerMIL", "--ckpt", str(tmp / "RoFormerMIL.pth"),
+                                  "--out", str(tmp / "slide.tdx"), "--backbone_ckpt",
+                                  str(tmp / "backbone.pth"), "--calib_tiles",
+                                  str(tmp / "calib.npy"), "--chunk", str(CHUNK), "--tile_hw",
+                                  str(TILE), "--buckets", ",".join(map(str, SMOKE_BUCKETS)),
+                                  "--device", str(dev)], tag="heads")
+        slide_bundle = ServingBundle.load(tmp / "slide.tdx", device=dev)
+        part("slide tiles, export")
+        file_coords = np.asarray([parse_coords(p.name) for p in paths], np.float32)
+        want_probs, want_scores = slide_bundle.predict_slide_with_attention(tiles, file_coords)
+        t0 = time.perf_counter()
+        (got,), launches = all_counts(lambda: quiet(infer.main, [
+            "--tiles_root", str(tmp / "tiles"), "--backbone_ckpt", str(tmp / "backbone.pth"),
+            "--head_ckpt", str(tmp / "RoFormerMIL.pth"), "--model", "RoFormerMIL",
+            "--quantize", "int8", "--chunk", str(CHUNK), "--tile_size", str(TILE),
+            "--out_dir", str(tmp / "out"), "--device", str(dev)], tag="heads"))
+        infer_s = time.perf_counter() - t0
+        chunks = -(-DISK_TILES // CHUNK)
+        expect_none("cli.infer --model RoFormerMIL", launches, qstage_run=4 * chunks,
+                    qentry_run=3 * chunks)
+        err = float(np.abs(np.asarray(got["probs"]) - want_probs).max())
+        grid = slide_bundle.predict_slide(tiles)
+        log(f"[heads] cli.infer --model RoFormerMIL, one slide of {DISK_TILES} JPEG tiles named "
+            f"with their coordinates: {infer_s:.2f} s (int8 calibration included), probs "
+            f"{got['probs']}, max|dprob| vs the in-process slide bundle with the file-name "
+            f"coords {err:.3e} (tol {TOL}); the square-grid fallback would give "
+            f"{grid.tolist()}; launches {launches}")
+        if not err <= TOL:
+            raise AssertionError(f"cli.infer RoFormerMIL disagrees: {err}")
+    part("cli.infer")
+    log(f"[heads] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+        f"{name} {s:.1f} s" for name, s in parts.items()))
+
+
 def main() -> int:
     try:
         import torch
@@ -1642,6 +2063,7 @@ def main() -> int:
     t_new = time.perf_counter()
     phase_cli_train(rng, results, dev)
     log(f"[env] cli_train phase {time.perf_counter() - t_new:.1f} s")
+    phase_heads(rng, results, dev, variables)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

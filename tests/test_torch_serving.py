@@ -143,8 +143,8 @@ def test_microbatcher_coalesces_same_bucket(params, tmp_path):
     dispatched = []
     forward = bundle2._logits
 
-    def recording(bags, target, batch):
-        out = forward(bags, target, batch)
+    def recording(bags, target, batch, coords=None):
+        out = forward(bags, target, batch, coords)
         dispatched.append((bags, target, batch, out))
         return out
 

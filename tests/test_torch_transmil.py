@@ -113,8 +113,11 @@ def test_flatten_unflatten_round_trip():
 
 
 def test_create_model_rejects_other_heads():
-    with pytest.raises(KeyError):
-        create_model("AttMIL", 2, device="cpu")
+    for name in ("DTFD", "DTFDMIL", "CLAM_SB", "CLAM_MB", "CTMIL", "MDMIL", "DSMIL", "resnet50"):
+        with pytest.raises(KeyError, match="ROADMAP A7"):
+            create_model(name, 2, device="cpu")
+    with pytest.raises(KeyError, match="unknown model"):
+        create_model("NoSuchHead", 2, device="cpu")
 
 
 def test_training_mode_runs_the_plain_layers():

@@ -1,4 +1,4 @@
-"""Export a trained TransMIL head, or a whole slide pipeline, as a serving
+"""Export a trained MIL head, or a whole slide pipeline, as a serving
 bundle (port of ``cli/export_model.py``).
 
 ``python -m transmil_deepgraft_tpu_torch.cli.export_model --model TransMIL \
@@ -8,7 +8,10 @@ With ``--backbone_ckpt`` it writes a slide bundle (raw tiles -> slide
 probabilities): the int8 ResNet50 calibrated on ``--calib_tiles`` (on the
 card, or ``--device cpu``), else the float ResNet50 served in bf16. The
 port's bundles hold weights, not compiled programs: ``--platforms`` and
-``--symbolic`` are accepted at their defaults only.
+``--symbolic`` are accepted at their defaults only. ``--model`` takes every
+ported head (TransMIL, TransformerMIL, AttMIL, Chowder, RoFormerMIL,
+AttTrans/MonaiMILModel): its widths and depths come from the weights, its
+other knobs are the head's defaults, as in the JAX CLI.
 
 Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
 port's trainer checkpoints) or flax msgpack trees (the JAX trainer's
@@ -28,11 +31,14 @@ def make_parser() -> argparse.ArgumentParser:
     from transmil_deepgraft_tpu_torch.serving import DEFAULT_SERVING_BUCKETS
 
     p = argparse.ArgumentParser(description="export a serving bundle (.tdx)")
-    p.add_argument("--model", required=True, help="head family; the port has TransMIL")
+    p.add_argument("--model", required=True,
+                   help="head family: TransMIL/TransformerMIL/AttMIL/Chowder/RoFormerMIL/"
+                        "AttTrans (models.create_model)")
     p.add_argument("--ckpt", required=True,
                    help="trainer .ckpt, flax msgpack tree, or torch .pth")
     p.add_argument("--out", required=True, help="output bundle path (.tdx)")
-    p.add_argument("--n_classes", type=int, default=2)
+    p.add_argument("--n_classes", type=int, default=2,
+                   help="checked against the classifier's weights")
     p.add_argument("--in_features", type=int, default=2048)
     p.add_argument("--out_features", type=int, default=512,
                    help="the head's width (the port reads it from the weights)")
@@ -62,6 +68,7 @@ def make_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     import numpy as np
 
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED
     from transmil_deepgraft_tpu_torch.serving import export_serving_bundle, export_slide_bundle
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
@@ -70,10 +77,11 @@ def main(argv: list[str] | None = None) -> dict:
     if args.platforms != DEFAULT_PLATFORMS or args.symbolic != DEFAULT_SYMBOLIC:
         raise SystemExit("--platforms and --symbolic choose the programs of a JAX bundle; the "
                          "port's bundles hold weights, not programs")
-    if args.model != "TransMIL":
-        raise SystemExit(f"--model {args.model}: the port exports TransMIL; the other heads "
-                         "come with ROADMAP queue A item 7")
-    params = load_head_params(args.ckpt, args.in_features)
+    if args.model not in MODEL_REGISTRY:
+        item = NOT_PORTED.get(args.model, "A7")
+        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP queue A item "
+                         f"{item[1:]}); the port exports {sorted(MODEL_REGISTRY)}")
+    params = load_head_params(args.ckpt, args.in_features, args.model)
     buckets = [int(b) for b in args.buckets.split(",")]
     if args.backbone_ckpt:
         # slide bundles serve one slide per call

@@ -2,9 +2,11 @@
 ``python -m transmil_deepgraft_tpu_torch.cli.infer``.
 
 A folder of slide tile folders streams from disk through the int8 (or bf16)
-ResNet50 and the TransMIL head of ``inference.SlideInferencePipeline`` on the
-card (``--device cpu`` for the CPU) and writes each slide's probabilities
-plus its top-k tiles by attention.
+ResNet50 and a MIL head (``--model``: any ported head with attention scores)
+of ``inference.SlideInferencePipeline`` on the card (``--device cpu`` for
+the CPU) and writes each slide's probabilities plus its top-k tiles by
+attention. A coord-aware head (RoFormerMIL) gets the tiles' real (x-y)
+coordinates from their file names, as in the JAX CLI.
 
 Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
 port's trainer checkpoints) converted by ``utils/torch_weights``, or flax
@@ -27,12 +29,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone_ckpt", required=True,
                    help="ResNet50/RetCCL weights: flax msgpack or torch .pth")
     p.add_argument("--head_ckpt", required=True,
-                   help="TransMIL head weights: flax msgpack or torch .pth")
+                   help="head weights: flax msgpack or torch .pth")
     p.add_argument("--model", default="TransMIL",
-                   help="head name; the port has TransMIL")
-    p.add_argument("--n_classes", type=int, default=2)
+                   help="head name: TransMIL/AttMIL/Chowder/RoFormerMIL/AttTrans")
+    p.add_argument("--n_classes", type=int, default=2,
+                   help="the head's classes (the port reads them from the weights)")
     p.add_argument("--in_features", type=int, default=2048)
-    p.add_argument("--out_features", type=int, default=512)
+    p.add_argument("--out_features", type=int, default=512,
+                   help="the head's width (the port reads it from the weights)")
     p.add_argument("--quantize", choices=["bf16", "int8", "int8_fused"], default="int8")
     p.add_argument("--chunk", type=int, default=128)
     p.add_argument("--tile_size", type=int, default=224)
@@ -50,15 +54,16 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
-    from transmil_deepgraft_tpu_torch.models import create_model
-    from transmil_deepgraft_tpu_torch.utils.jax_params import state_dict_from_jax
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED
+    from transmil_deepgraft_tpu_torch.serving import head_from_params
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
 
     args = make_parser().parse_args(argv)
-    if args.model != "TransMIL":
-        raise SystemExit(f"--model {args.model}: the port serves TransMIL; the other heads "
-                         "come with ROADMAP queue A item 7")
+    if args.model not in MODEL_REGISTRY:
+        item = NOT_PORTED.get(args.model, "A7")
+        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP queue A item "
+                         f"{item[1:]}); the port serves {sorted(MODEL_REGISTRY)}")
     if args.n_chips > 1:
         raise SystemExit("--n_chips > 1: the multi-device embed comes with ROADMAP queue A "
                          "item 10")
@@ -67,10 +72,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     out_dir.mkdir(parents=True, exist_ok=True)
 
     bb_vars = load_backbone_variables(args.backbone_ckpt)
-    head = create_model(args.model, args.n_classes, args.in_features, args.out_features,
-                        device=device)
-    head.load_state_dict(state_dict_from_jax(load_head_params(args.head_ckpt, args.in_features),
-                                             args.in_features))
+    head = head_from_params(args.model,
+                            load_head_params(args.head_ckpt, args.in_features, args.model),
+                            args.in_features, device=device)
 
     root = Path(args.tiles_root)
     slides = sorted(d for d in root.iterdir() if d.is_dir())
@@ -94,8 +98,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
                 bb_vars, head, calib_tiles=calib, chunk=args.chunk,
                 fused_backbone=args.quantize == "int8_fused", device=device,
             )
+        coords = None
+        if pipeline.coord_aware:  # the real (x-y) file-name coords
+            coords = np.asarray([parse_coords(p.name) for p in tile_paths], np.float32)
         probs, attn = pipeline.predict_slide_paths_with_attention(
-            tile_paths, tile_size=args.tile_size
+            tile_paths, coords, tile_size=args.tile_size
         )
         order = np.argsort(attn)[::-1][:args.topk]
         topk_csv = out_dir / f"{slide_dir.name}_topk_tiles.csv"

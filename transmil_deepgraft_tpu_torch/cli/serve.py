@@ -16,7 +16,9 @@ Endpoints:
   Body is either JSON ``{"features": [[...], ...]}`` (one bag, n x D) /
   ``{"bags": [[[...]]]}`` (batch), or a raw ``.npy`` array (n, D) or
   (B, n, D), or an ``.npz`` with ``features`` (and ``coords``), with
-  ``Content-Type: application/octet-stream``.
+  ``Content-Type: application/octet-stream``. ``coords`` (the tiles' (n, 2)
+  or (B, n, 2) grid positions, a JSON key or the ``.npz``'s) go to a
+  coord-aware bundle (RoFormerMIL); another bundle answers 400.
 - ``POST /predict_slide`` (slide bundles) -> the same for (N, H, W, 3) raw
   uint8 or normalized float32 tiles, with the top-k tiles by attention when
   the bundle has attention.

@@ -14,9 +14,13 @@ Trainer, and run the stage:
 - ``test`` / ``val``: every ``checkpoints/*.ckpt`` of the log dir (the
   port's, or the JAX Trainer's msgpack ones), evaluated with result CSVs.
 
-Runs on the card unless ``--device cpu``. ``General.precision`` 16 or
-``16-mixed`` trains a bfloat16-compute TransMIL. The other heads, DTFD and the
-non-feature dataset variants are not ported yet and raise (ROADMAP A6/A7).
+Runs on the card unless ``--device cpu``. The heads are TransMIL,
+TransformerMIL, AttMIL, Chowder, RoFormerMIL (with the bags' tile
+coordinates) and AttTrans/MonaiMILModel; ``General.precision`` 16 or
+``16-mixed`` trains a bfloat16-compute TransMIL, and the other heads in
+float32, as the JAX package's ``create_model`` does. DTFD, CLAM, CTMIL, MDMIL,
+DSMIL and the spatial ResNet50 head (ROADMAP A7) and the classic per-tile
+models (A8) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -52,16 +56,31 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _model_extras(cfg) -> dict:
-    """The ``cfg.Model`` knobs TransMIL's constructor takes (JAX forwards
-    each knob the head declares; the other heads' knobs are theirs)."""
-    return {k: cfg.Model[k] for k in ("use_pallas", "fused_inference") if k in cfg.Model}
+# the optional ``cfg.Model`` knobs, forwarded to the heads that take them
+# (JAX cli/train.py:57-70): TransMIL's use_pallas/fused_inference,
+# RoFormerMIL's num_landmarks/depth/..., TransformerMIL's pool/dropout
+MODEL_KNOBS = ("use_pallas", "fused_inference", "num_landmarks", "depth", "heads", "dim_head",
+               "mlp_dim", "pool", "dropout", "rope_base")
+
+
+def _model_extras(cfg, model_name: str) -> dict:
+    """The ``cfg.Model`` knobs the head's constructor declares; the others
+    are ignored, so one YAML schema serves every head."""
+    import inspect
+
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY
+
+    cls = MODEL_REGISTRY.get(model_name)
+    if cls is None:
+        return {}
+    declared = inspect.signature(cls.__init__).parameters
+    return {k: cfg.Model[k] for k in MODEL_KNOBS if k in declared and k in cfg.Model}
 
 
 def build(cfg, log_dir: str | None = None, device: str | None = None):
     from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
     from transmil_deepgraft_tpu_torch.device import resolve_device
-    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.models import NOT_PORTED, create_model
     from transmil_deepgraft_tpu_torch.train.losses import create_loss
     from transmil_deepgraft_tpu_torch.train.optimizers import create_optimizer_from_config
     from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -73,9 +92,9 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
     if model_name in ("DTFD", "DTFDMIL"):
         raise NotImplementedError("DTFD (a batch-1 head with two optimizers) is not ported "
                                   "yet (ROADMAP A7)")
-    if model_name != "TransMIL":
-        raise NotImplementedError(f"Model.name {model_name!r}: the port trains TransMIL; the "
-                                  "other heads are ROADMAP A7")
+    if model_name in NOT_PORTED:
+        raise NotImplementedError(f"Model.name {model_name!r} is not ported yet (ROADMAP "
+                                  f"{NOT_PORTED[model_name]})")
     dev = resolve_device(device)
     seed = int(cfg.General.seed or 2021)
 
@@ -100,7 +119,7 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         fold=int(cfg.Data.fold or 0),
         tile_size=int(cfg.Data.tile_size or 224),
         # JAX picks the variant by head (spatial for CTMIL/resnet50, tiles for
-        # the classic CNNs); TransMIL reads feature bags
+        # the classic CNNs); the ported heads read feature bags
         variant=str(cfg.Data.variant or "features"),
     )
     # the initial weights come from the config's seed (JAX: key(seed)), drawn
@@ -110,7 +129,7 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         model = create_model(model_name, n_classes=n_classes, in_features=in_features,
                              out_features=out_features, device=dev,
                              precision=cfg.General.precision or None,
-                             **_model_extras(cfg))
+                             **_model_extras(cfg, model_name))
     loss_fn = create_loss(str(cfg.Loss.base_loss or "CrossEntropyLoss"))
     grad_acc = int(cfg.General.grad_acc or 1)
     tx = create_optimizer_from_config(cfg.Optimizer, grad_accum_steps=grad_acc)

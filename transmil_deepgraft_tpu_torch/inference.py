@@ -1,19 +1,21 @@
-"""Slide-inference pipeline: int8 PTQ backbone + TransMIL head (port of
+"""Slide-inference pipeline: int8 PTQ backbone + a MIL head (port of
 ``inference.py``).
 
 Raw tiles stream through the int8 post-training-quantized ResNet50
 (``models/resnet_int8``) in fixed chunks, the features stay on the device,
 and the bag goes through the head (the port's TransMIL, whose TransLayers run
-the K1/K2 kernels at inference). On a CUDA device the backbone's bottleneck
-stages run the int8 stage/entry kernels (``ops/qstage_kernel``).
+the K1/K2 kernels at inference, or another ported head). A coord-aware head
+(RoFormerMIL) gets the tiles' (N, 2) grid coordinates as its second
+argument, or its square-grid fallback when there are none; for the other
+heads ``coords`` are accepted and not used, as in the JAX package. On a
+CUDA device the backbone's bottleneck stages run the int8 stage/entry
+kernels (``ops/qstage_kernel``).
 
 Tiles come as arrays (``predict_slide*``) or as image files streamed from
 disk (``predict_slide_paths*``): the next chunk decodes on a host thread
 while this one embeds on the device.
 
-Left for later slices: the multi-device ``mesh`` and coord-aware heads (the
-``coords`` arguments are accepted and, as in the JAX package for a head that
-is not coord-aware, not used).
+Left for a later slice: the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -85,9 +87,8 @@ class SlideInferencePipeline:
     Args:
       backbone_variables: fp32 ResNet50 ``{'params','batch_stats'}`` in flax
         layout (numpy leaves), e.g. converted from ``retccl_best_ckpt.pth``.
-      head_model: the bag-level head, an ``nn.Module`` with its weights (the
-        port's TransMIL); it is moved to the device and put in eval mode.
-        Coord-aware heads are not ported yet and are refused.
+      head_model: the bag-level head, an ``nn.Module`` with its weights (a
+        ported head); it is moved to the device and put in eval mode.
       calib_tiles: representative tiles for int8 activation calibration;
         None runs the backbone in bf16 instead.
       chunk: tile batch per backbone call.
@@ -111,8 +112,7 @@ class SlideInferencePipeline:
         fused_t_cfg: tuple = (1, 2, 4, 4, 4, 4, 4),
         device: str | torch.device | None = None,
     ) -> None:
-        if getattr(head_model, "coord_aware", False):
-            raise ValueError("coord-aware heads are not ported yet")
+        self.coord_aware = bool(getattr(head_model, "coord_aware", False))
         self.device = resolve_device(device)
         self.head = head_model.to(self.device).eval()
         self.chunk = chunk
@@ -181,37 +181,53 @@ class SlideInferencePipeline:
                             tile_size: int = 224) -> np.ndarray:
         """Tile image paths on disk -> (C,) slide probabilities, streamed
         (see :meth:`embed_paths_device`)."""
-        return self._probs(self.embed_paths_device(paths, tile_size=tile_size))
+        return self._probs(self.embed_paths_device(paths, tile_size=tile_size), coords)
 
     def predict_slide_paths_with_attention(
         self, paths, coords: Optional[np.ndarray] = None, *, tile_size: int = 224
     ) -> tuple[np.ndarray, np.ndarray]:
         """Streamed :meth:`predict_slide_with_attention`."""
         feats = self.embed_paths_device(paths, tile_size=tile_size)
-        return self._attention_from_feats(feats, len(paths))
+        return self._attention_from_feats(feats, len(paths), coords)
 
     def predict_slide(self, tiles: np.ndarray, coords: Optional[np.ndarray] = None) -> np.ndarray:
-        """(N, H, W, 3) tiles -> (C,) slide class probabilities."""
-        return self._probs(self.embed_device(tiles))
+        """(N, H, W, 3) tiles -> (C,) slide class probabilities. ``coords``
+        ((N, 2) tile grid positions) feed a coord-aware head."""
+        return self._probs(self.embed_device(tiles), coords)
 
     def predict_slide_with_attention(
         self, tiles: np.ndarray, coords: Optional[np.ndarray] = None
     ) -> tuple[np.ndarray, np.ndarray]:
         """Returns (probs (C,), per-tile attention scores (N,))."""
-        return self._attention_from_feats(self.embed_device(tiles), len(tiles))
+        return self._attention_from_feats(self.embed_device(tiles), len(tiles), coords)
 
-    def _probs(self, feats: torch.Tensor) -> np.ndarray:
+    def _head(self, feats: torch.Tensor, coords, **kw):
+        """The head on one (N, D) bag; a coord-aware one also gets the
+        (1, N, 2) coords (None: its square-grid fallback)."""
+        if not self.coord_aware:
+            return self.head(feats[None], **kw)
+        if coords is not None:
+            coords = np.asarray(coords, np.float32)
+            if coords.shape != (feats.shape[0], 2):
+                raise ValueError(f"coords must be ({feats.shape[0]}, 2), got {coords.shape}")
+            coords = torch.from_numpy(coords[None]).to(self.device)
+        return self.head(feats[None], coords, **kw)
+
+    def _probs(self, feats: torch.Tensor, coords=None) -> np.ndarray:
         with torch.inference_mode():
-            probs = torch.softmax(self.head(feats[None]), dim=-1)
+            probs = torch.softmax(self._head(feats, coords), dim=-1)
         return probs.cpu().numpy()[0]
 
-    def _attention_from_feats(self, feats: torch.Tensor,
-                              n_tiles: int) -> tuple[np.ndarray, np.ndarray]:
+    def _attention_from_feats(self, feats: torch.Tensor, n_tiles: int,
+                              coords=None) -> tuple[np.ndarray, np.ndarray]:
         with torch.inference_mode():
-            logits, attn = self.head(feats[None], return_attn=True)
+            logits, attn = self._head(feats, coords, return_attn=True)
             probs = torch.softmax(logits, dim=-1).cpu().numpy()[0]
             # TransMIL-family heads return a payload with tile_scores()
             # (B, heads, n); gated heads return the (B, n) weights directly
+            if attn is None:
+                raise ValueError(f"the {type(self.head).__name__} head gives no attention "
+                                 "scores")
             raw = attn.tile_scores() if hasattr(attn, "tile_scores") else attn
             if raw.numel() % n_tiles != 0:
                 raise ValueError(

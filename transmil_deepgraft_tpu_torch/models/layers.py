@@ -1,10 +1,16 @@
-"""Layers of the TransMIL head (port of ``models/layers.py``).
+"""Layers of the MIL heads (port of ``models/layers.py``).
 
 - :class:`NystromAttentionLayer` / :class:`TransLayer` - the Nystrom-attention
   block (ref ``code/models/TransMIL.py:19-57``), on the XLA path's semantics.
 - :class:`PPEG` - pyramid position encoding generator, folded to one 7x7
   depthwise conv (ref ``TransMIL.py:60-75``).
 - :func:`make_fc1` - the per-in_features input MLP variants.
+- :class:`SoftmaxAttention`, :class:`FeedForward`, :class:`TransformerBlock`
+  - TransformerMIL's pre-norm encoder (ref ``_transformer.py``,
+  ``TransformerMIL.py:18-32``); :class:`TorchEncoderLayer` /
+  :class:`TorchTransformerEncoder` - torch's post-norm
+  ``nn.TransformerEncoder`` semantics, for the MONAI head. Their attention is
+  :func:`~transmil_deepgraft_tpu_torch.ops.attention.softmax_attention`.
 
 ``dtype=torch.bfloat16`` is the JAX package's mixed precision: the Dense
 layers, the value residual and PPEG compute in bfloat16 from float32
@@ -12,8 +18,9 @@ parameters, as flax's ``dtype=`` does; LayerNorm, softmax, the pinv and the
 residual stream stay float32.
 
 Parameter names follow the reference torch modules (``to_qkv``,
-``to_out.0``, ``res_conv``, ``proj``/``proj1``/``proj2``, ``_fc1.<i>``), so a
-reference checkpoint's state dict loads as it is and
+``to_out.0``, ``res_conv``, ``proj``/``proj1``/``proj2``, ``_fc1.<i>``,
+``layers.<i>.0.fn.to_qkv``, ``self_attn.in_proj_weight``), so a reference
+checkpoint's state dict loads as it is and
 ``utils/torch_weights.convert_transmil_state_dict`` of the JAX package maps
 this state dict onto the flax tree.
 """
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transmil_deepgraft_tpu_torch.ops.attention import softmax_attention
 from transmil_deepgraft_tpu_torch.ops.depthwise import depthwise_conv1d, depthwise_conv2d
 from transmil_deepgraft_tpu_torch.ops.nystrom import (
     nystrom_attention,
@@ -212,3 +220,124 @@ def make_fc1(in_features: int, out_features: int,
             Dropout(0.6), LayerNorm(out_features),
         )
     return nn.Sequential(linear(in_features, out_features), GELU())
+
+
+class SoftmaxAttention(nn.Module):
+    """Multi-head softmax self-attention (ref ``_transformer.py:16-44``):
+    ``to_qkv`` without bias, packed [q | k | v]; no ``to_out`` when
+    ``heads == 1 and dim_head == dim``."""
+
+    def __init__(self, dim: int = 512, heads: int = 8, dim_head: int = 64,
+                 dropout: float = 0.1) -> None:
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.to_out = (nn.Identity() if heads == 1 and dim_head == dim
+                       else nn.Sequential(nn.Linear(inner, dim), Dropout(dropout)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        qkv = self.to_qkv(x).reshape(b, n, 3, self.heads, self.dim_head)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = softmax_attention(q, k, v, self.dim_head ** -0.5)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
+
+
+class FeedForward(nn.Module):
+    """GELU MLP with dropout (ref ``_transformer.py:46-58``)."""
+
+    def __init__(self, dim: int = 512, hidden_dim: int = 1024, dropout: float = 0.1) -> None:
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, hidden_dim), GELU(), Dropout(dropout),
+                                 nn.Linear(hidden_dim, dim), Dropout(dropout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module) -> None:
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(self.norm(x))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm attention + feed-forward residual stack of ``depth`` layers
+    (ref ``TransformerMIL.py:18-32``)."""
+
+    def __init__(self, dim: int = 512, depth: int = 2, heads: int = 8, dim_head: int = 64,
+                 mlp_dim: int = 512, dropout: float = 0.0) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.ModuleList([PreNorm(dim, SoftmaxAttention(dim, heads, dim_head, dropout)),
+                           PreNorm(dim, FeedForward(dim, mlp_dim, dropout))])
+            for _ in range(depth))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for attn, ff in self.layers:
+            x = x + attn(x)
+            x = x + ff(x)
+        return x
+
+
+class PackedSelfAttention(nn.Module):
+    """The parameters of torch's ``nn.MultiheadAttention`` (packed
+    ``in_proj_weight``/``in_proj_bias``, ``out_proj``)."""
+
+    def __init__(self, d_model: int) -> None:
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+
+class TorchEncoderLayer(nn.Module):
+    """torch ``nn.TransformerEncoderLayer`` semantics (post-norm, ReLU
+    feed-forward, packed qkv), as the MONAI head builds it (ref
+    ``MonaiMILModel.py:121-152``)."""
+
+    def __init__(self, d_model: int, nhead: int = 8, dim_feedforward: int = 2048,
+                 dropout: float = 0.0) -> None:
+        super().__init__()
+        self.nhead = nhead
+        self.self_attn = PackedSelfAttention(d_model)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout_attn, self.dropout, self.dropout1, self.dropout2 = (
+            Dropout(dropout) for _ in range(4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, d = x.shape
+        dh = d // self.nhead
+        sa = self.self_attn
+        qkv = F.linear(x, sa.in_proj_weight, sa.in_proj_bias).reshape(b, n, 3, self.nhead, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        drop = self.dropout_attn if self.training and self.dropout_attn.p > 0 else None
+        out = softmax_attention(q, k, v, 1.0 / dh ** 0.5, dropout=drop)
+        out = self.dropout1(sa.out_proj(out.transpose(1, 2).reshape(b, n, d)))
+        x = self.norm1(x + out)
+        ff = self.dropout2(self.linear2(self.dropout(F.relu(self.linear1(x)))))
+        return self.norm2(x + ff)
+
+
+class TorchTransformerEncoder(nn.Module):
+    """Stack of :class:`TorchEncoderLayer` (torch ``nn.TransformerEncoder``)."""
+
+    def __init__(self, d_model: int, num_layers: int = 4, nhead: int = 8,
+                 dim_feedforward: int = 2048, dropout: float = 0.0) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TorchEncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x

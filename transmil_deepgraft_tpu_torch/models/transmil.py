@@ -54,6 +54,9 @@ class TransMILAttention(NamedTuple):
 
 
 class TransMIL(nn.Module):
+    flax_classifier = "fc"  # the flax name of the (width, n_classes) classifier
+    gives_attention = True  # return_attn gives the TransMILAttention row
+
     def __init__(self, n_classes: int, in_features: int = 2048, out_features: int = 512,
                  attn_query: str = "ref", fused_inference: bool = True,
                  use_pallas: Optional[bool] = None, dtype: torch.dtype = torch.float32) -> None:

@@ -13,6 +13,18 @@ programs.
     bundle = ServingBundle.load("head.tdx")          # on the card
     probs = bundle.predict(features)                 # (n, D) -> (1, C)
 
+Every ported head serves (TransMIL, TransformerMIL, AttMIL, Chowder,
+RoFormerMIL, AttTrans/MonaiMILModel): the meta names the head, whether it
+is coord-aware, and its knobs (``knobs``: RoFormerMIL's ``num_landmarks``,
+MONAI's ``mil_mode``, ...); the widths and depths come from the weights, and
+a JAX bundle (whose meta has no knobs) gets the heads' defaults for the
+knobs its weights do not show (a MONAI 'mean' or 'max' head, whose weights
+are the same, needs its ``mil_mode``). A coord-aware bundle takes
+``coords``, the tiles' (n, 2) grid positions, normalized and zero-padded
+with the bag (``data/coords.normalize_pad_coords``), or the square grid of
+the padded length when there are none; the other bundles refuse coords, as
+JAX's do.
+
 Bags are zero-padded to the next bucket length, as the JAX bundles' bucketed
 mode (and the trainer's ``eval_pad='bucket'`` policy) do, so each bucket is
 one shape. The pad is made on the device: only the real rows cross from the
@@ -23,9 +35,7 @@ A slide bundle (:func:`export_slide_bundle`, ``meta["kind"] == "slide"``)
 also holds the tile backbone, the int8 ResNet50 (``backbone: "int8"``) or the
 float ResNet50 run in bf16, as the flat leaf list the JAX package writes
 (``backbone_leaves``): ``predict_slide(tiles)`` embeds raw tiles in chunks on
-the device and runs the head on the bag. This slice serves the TransMIL head;
-coord-aware heads are not ported yet, so ``coords`` are refused, with the
-JAX package's message for a head that is not coord-aware.
+the device and runs the head on the bag.
 """
 
 from __future__ import annotations
@@ -39,13 +49,15 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from transmil_deepgraft_tpu_torch.data.coords import grid_coords, normalize_pad_coords
 from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD
 from transmil_deepgraft_tpu_torch.device import resolve_device
-from transmil_deepgraft_tpu_torch.models import create_model
+from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, create_model
 from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
     EXPANSION, PLANES, QBlock, QResNet50, _block_plan)
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
-from transmil_deepgraft_tpu_torch.utils.jax_params import flatten, state_dict_from_jax, unflatten
+from transmil_deepgraft_tpu_torch.utils.jax_params import (
+    flatten, head_knobs_from_params, head_state_dict_from_jax, unflatten)
 
 FORMAT_VERSION = 1
 # Serving buckets default to the mid-range of ops.padding.DEFAULT_BUCKETS.
@@ -53,6 +65,37 @@ DEFAULT_SERVING_BUCKETS: tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192, 16
 # Slide bundles serve whole slides, so their head buckets reach the tile
 # counts of large slides (a 40,960-tile slide pads to 65,536).
 SLIDE_SERVING_BUCKETS: tuple[int, ...] = DEFAULT_SERVING_BUCKETS + (32768, 65536)
+def head_from_params(model_name: str, params: Mapping[str, Any], in_features: int,
+                     knobs: Mapping[str, Any] | None = None,
+                     device: str | torch.device | None = None) -> torch.nn.Module:
+    """A ported head with its flax-layout ``params``, in eval mode on
+    ``device`` (None = CUDA): n_classes and the widths and depths from the
+    weights, the other knobs from ``knobs`` or the head's defaults."""
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"the port serves {sorted(MODEL_REGISTRY)}, not {model_name!r}")
+    classifier = MODEL_REGISTRY[model_name].flax_classifier
+    if classifier not in params:
+        raise ValueError(f"the params hold no {model_name} head (no {classifier!r}; "
+                         f"top-level keys {sorted(params)[:8]})")
+    width, n_classes = np.shape(params[classifier]["kernel"])
+    model = create_model(model_name, int(n_classes), in_features, int(width), device=device,
+                         **head_knobs_from_params(model_name, params, knobs))
+    model.load_state_dict(head_state_dict_from_jax(model_name, params, in_features))
+    return model.eval()
+
+
+def _head_meta(model_name: str, params: Mapping[str, Any], in_features: int, n_classes: int,
+               knobs: Mapping[str, Any] | None) -> dict:
+    """The head's part of a bundle's meta, checked by building the head from
+    ``params`` on the CPU."""
+    model = head_from_params(model_name, params, in_features, knobs, device="cpu")
+    classes = int(np.shape(params[model.flax_classifier]["kernel"])[1])
+    if classes != n_classes:
+        raise ValueError(f"n_classes={n_classes} but the {model_name} weights give {classes}")
+    return {"model_name": model_name, "in_features": int(in_features),
+            "n_classes": int(n_classes), "attention": bool(model.gives_attention),
+            "coord_aware": bool(getattr(model, "coord_aware", False)),
+            "knobs": dict(knobs or {})}
 
 
 def export_serving_bundle(
@@ -64,20 +107,17 @@ def export_serving_bundle(
     n_classes: int,
     batch: int = 1,
     buckets: Sequence[int] = DEFAULT_SERVING_BUCKETS,
+    knobs: Mapping[str, Any] | None = None,
 ) -> dict:
-    """Write a ``.tdx`` bundle from flax-layout ``params``; returns its meta."""
-    if model_name != "TransMIL":
-        raise ValueError(f"the port serves TransMIL bundles only, not {model_name!r}")
+    """Write a ``.tdx`` bundle from a ported head's flax-layout ``params``
+    and its constructor ``knobs`` (those the weights do not show); returns
+    its meta."""
     meta = {
         "format_version": FORMAT_VERSION,
-        "model_name": model_name,
-        "in_features": int(in_features),
-        "n_classes": int(n_classes),
+        **_head_meta(model_name, params, in_features, n_classes, knobs),
         "batch": int(batch),
         "mode": "bucketed",
         "buckets": sorted(int(b) for b in buckets),
-        "attention": True,
-        "coord_aware": False,
     }
     _write_bundle(path, meta, flatten(params))
     return meta
@@ -90,7 +130,8 @@ def _write_bundle(path: str | Path, meta: dict, arrays: Mapping[str, np.ndarray]
     path.parent.mkdir(parents=True, exist_ok=True)
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as z:
         z.writestr("meta.json", json.dumps(meta, indent=1))
-        z.writestr("params.npz", buf.getvalue())
+        # float weights deflate by a few percent at ~70 ms a MB: stored as they are
+        z.writestr("params.npz", buf.getvalue(), compress_type=zipfile.ZIP_STORED)
 
 
 # ------------------------------------------------------- backbone leaves
@@ -236,6 +277,7 @@ def export_slide_bundle(
     truncate_after: int = 4,
     head_buckets: Sequence[int] = SLIDE_SERVING_BUCKETS,
     device: str | torch.device | None = None,
+    knobs: Mapping[str, Any] | None = None,
 ) -> dict:
     """Write a ``.tdx`` bundle that serves the whole pipeline, raw tiles ->
     slide probabilities (:meth:`ServingBundle.predict_slide`); returns its
@@ -244,16 +286,15 @@ def export_slide_bundle(
     ``backbone_variables``: the float ResNet50 ``{'params', 'batch_stats'}``
     in flax layout (numpy). With ``calib_tiles`` the backbone is the int8
     ResNet50 calibrated on them on ``device`` (None = CUDA), else the float
-    one, served in bf16. ``head_params``: the TransMIL head's flax-layout
-    params. The backbone's feature width is checked against ``in_features``
-    before the build."""
-    if model_name != "TransMIL":
-        raise ValueError(f"the port serves TransMIL bundles only, not {model_name!r}")
+    one, served in bf16. ``head_params``: the head's flax-layout params,
+    ``knobs`` its constructor knobs. The backbone's feature width is checked
+    against ``in_features`` before the build."""
     last = [name for name, _, _ in _block_plan(truncate_after)][-1]
     feature_dim = int(np.shape(backbone_variables["params"][last]["conv3"]["kernel"])[-1])
     if feature_dim != in_features:
         raise ValueError(f"backbone produces {feature_dim}-d features but the head expects "
                          f"in_features={in_features}")
+    head = _head_meta(model_name, head_params, in_features, n_classes, knobs)
     if calib_tiles is not None:
         from transmil_deepgraft_tpu_torch.models.resnet_int8 import build_qresnet50
 
@@ -265,14 +306,10 @@ def export_slide_bundle(
     meta = {
         "format_version": FORMAT_VERSION,
         "kind": "slide",
-        "model_name": model_name,
-        "in_features": int(in_features),
-        "n_classes": int(n_classes),
+        **head,
         "batch": 1,
         "mode": "bucketed",
         "buckets": sorted(int(b) for b in head_buckets),
-        "attention": True,
-        "coord_aware": False,
         "chunk": int(chunk),
         "tile_hw": int(tile_hw),
         "backbone": precision,
@@ -302,14 +339,14 @@ class ServingBundle:
         """``params``: the head's flax-layout params; ``backbone_leaves``: a
         slide bundle's backbone leaves."""
         self.meta = meta
-        if meta.get("coord_aware"):
-            raise ValueError("coord-aware bundles are not ported yet")
         self.device = resolve_device(device)
-        in_features = meta["in_features"]
-        self.model = create_model(meta["model_name"], meta["n_classes"], in_features,
-                                  int(np.shape(params["fc"]["kernel"])[0]), device=self.device)
-        self.model.load_state_dict(state_dict_from_jax(params, in_features))
-        self.model.eval()
+        self.model = head_from_params(meta["model_name"], params, meta["in_features"],
+                                      meta.get("knobs"), device=self.device)
+        self.coord_aware = bool(getattr(self.model, "coord_aware", False))
+        if self.coord_aware != bool(meta.get("coord_aware")):
+            raise ValueError(f"meta says coord_aware={meta.get('coord_aware')}, but the "
+                             f"{meta['model_name']} head is {'' if self.coord_aware else 'not '}"
+                             "coord-aware")
         if meta.get("kind") == "slide":
             if meta["backbone"] == "int8":
                 from transmil_deepgraft_tpu_torch.models.resnet_int8 import apply_qresnet50
@@ -326,9 +363,9 @@ class ServingBundle:
     def load(cls, path: str | Path, device: str | torch.device | None = None) -> "ServingBundle":
         """Load a bundle of either package: the port's ``params.npz`` or the
         JAX package's ``variables.msgpack`` (its ``batch_stats``, if any, are
-        not used by TransMIL; ``n_classes`` comes from the head's weights when
-        the meta has none). A slide bundle's backbone is rebuilt from its
-        leaves; ``device`` None means CUDA."""
+        not used by the ported heads; ``n_classes`` comes from the head's
+        weights when the meta has none). A slide bundle's backbone is rebuilt
+        from its leaves; ``device`` None means CUDA."""
         with zipfile.ZipFile(path) as z:
             meta = json.loads(z.read("meta.json"))
             if meta["format_version"] > FORMAT_VERSION:
@@ -352,7 +389,9 @@ class ServingBundle:
             params, leaves = tree["head"]["params"], tree["backbone_leaves"]
         else:  # the port writes a head's params alone, JAX its variables
             params, leaves = (tree if "params.npz" in names else tree["params"]), None
-        meta.setdefault("n_classes", int(np.shape(params["fc"]["kernel"])[1]))
+        if meta["model_name"] in MODEL_REGISTRY:
+            classifier = MODEL_REGISTRY[meta["model_name"]].flax_classifier
+            meta.setdefault("n_classes", int(np.shape(params[classifier]["kernel"])[1]))
         return cls(meta, params, device, leaves)
 
     def _pad_target(self, n: int) -> int:
@@ -364,12 +403,11 @@ class ServingBundle:
             f"({self.meta['buckets'][-1]}); re-export with larger buckets"
         )
 
-    def _prepare_one(self, feats: np.ndarray, coords=None) -> tuple[int, int, np.ndarray]:
+    def _prepare_one(self, feats: np.ndarray) -> tuple[int, int, np.ndarray]:
         """The single-bag input contract shared by the batched predict and
         :class:`MicroBatcher`: validate dims and pick the serving bucket.
         Returns ``(n_real, target, (n_real, D) float32 feats)``; the zero pad
         to ``target`` rows is made on the device by :meth:`_device_bags`."""
-        _refuse_coords(coords)
         feats = np.ascontiguousarray(feats, np.float32)
         if feats.ndim != 2:
             raise ValueError(f"each bag must be (n, D), got {feats.shape}")
@@ -378,19 +416,36 @@ class ServingBundle:
             raise ValueError(f"expected in_features={self.meta['in_features']}, got {d}")
         return n, self._pad_target(n), feats
 
-    def _prepare_inputs(self, feats: np.ndarray, coords=None) -> tuple[int, int, list[np.ndarray]]:
-        """Validate a (n, D) or (B, n, D) request; returns (n_real, target,
-        B bags)."""
-        _refuse_coords(coords)
+    def _bag_coords(self, coords, n: int, target: int, what: str = "bundle's"):
+        """A bag's head-input coords (JAX ``serving.py:452-490``): for a
+        coord-aware head, the (n, 2) coords normalized and zero-padded to
+        ``target`` rows, or the square grid of ``target`` when there are
+        none; for the other heads None, and coords are refused."""
+        if not self.coord_aware:
+            _refuse_coords(coords, what)
+            return None
+        if coords is None:
+            return grid_coords(target, 1)[0]
+        coords = np.asarray(coords, np.float32)
+        if coords.shape != (n, 2):
+            raise ValueError(f"coords must be ({n}, 2), got {coords.shape}")
+        return normalize_pad_coords(coords, target)
+
+    def _prepare_inputs(self, feats: np.ndarray, coords=None):
+        """Validate a (n, D) or (B, n, D) request (with (n, 2) or (B, n, 2)
+        coords); returns (n_real, target, B bags, B coords or None)."""
         feats = np.asarray(feats, np.float32)
         if feats.ndim == 2:
             feats = feats[None]
+            coords = None if coords is None else np.asarray(coords)[None]
         if feats.ndim != 3:
             raise ValueError(f"features must be (n, D) or (B, n, D), got {feats.shape}")
         if feats.shape[0] != self.meta["batch"]:
             raise ValueError(f"bundle exported for batch={self.meta['batch']}, got {feats.shape[0]}")
         n, target, _ = self._prepare_one(feats[0])
-        return n, target, list(feats)
+        bag_coords = [self._bag_coords(None if coords is None else coords[i], n, target)
+                      for i in range(len(feats))]
+        return n, target, list(feats), None if bag_coords[0] is None else bag_coords
 
     def _device_bags(self, bags: Sequence[np.ndarray], target: int, batch: int) -> torch.Tensor:
         """(batch, target, D) zeros on the device holding ``bags`` in its
@@ -402,15 +457,31 @@ class ServingBundle:
             x[i, :len(bag)] = torch.from_numpy(bag)
         return x
 
-    def _logits(self, bags: Sequence[np.ndarray], target: int, batch: int) -> np.ndarray:
-        """Bags of at most ``target`` rows -> (batch, C) logits."""
+    def _device_coords(self, coords, target: int, batch: int) -> torch.Tensor | None:
+        """(batch, target, 2) padded coords on the device (zero rows for the
+        batch's filler bags), or None for a head that takes none."""
+        if coords is None:
+            return None
+        c = np.zeros((batch, target, 2), np.float32)
+        c[:len(coords)] = np.stack(coords)
+        return torch.from_numpy(c).to(self.device)
+
+    def _forward(self, x: torch.Tensor, c: torch.Tensor | None, **kw):
+        return self.model(x, **kw) if c is None else self.model(x, c, **kw)
+
+    def _logits(self, bags: Sequence[np.ndarray], target: int, batch: int,
+                coords=None) -> np.ndarray:
+        """Bags of at most ``target`` rows (and their padded coords) ->
+        (batch, C) logits."""
         with torch.inference_mode():
-            return self.model(self._device_bags(bags, target, batch)).cpu().numpy()
+            return self._forward(self._device_bags(bags, target, batch),
+                                 self._device_coords(coords, target, batch)).cpu().numpy()
 
     def predict_logits(self, feats: np.ndarray, coords=None) -> np.ndarray:
-        """(n, D) or (B, n, D) float32 features -> (B, C) logits."""
-        _, target, bags = self._prepare_inputs(feats, coords)
-        return self._logits(bags, target, len(bags))
+        """(n, D) or (B, n, D) float32 features (with the tiles' (n, 2) grid
+        coords for a coord-aware head) -> (B, C) logits."""
+        _, target, bags, bag_coords = self._prepare_inputs(feats, coords)
+        return self._logits(bags, target, len(bags), bag_coords)
 
     def predict(self, feats: np.ndarray, coords=None) -> np.ndarray:
         """(n, D) or (B, n, D) features -> (B, C) class probabilities."""
@@ -420,17 +491,22 @@ class ServingBundle:
                                       coords=None) -> tuple[np.ndarray, np.ndarray]:
         """(n, D) or (B, n, D) features -> ((B, C) logits, (B, n) per-tile
         attention scores): heads averaged, padding scores stripped."""
-        n, target, bags = self._prepare_inputs(feats, coords)
-        return self._attention_logits(self._device_bags(bags, target, len(bags)), n)
+        n, target, bags, bag_coords = self._prepare_inputs(feats, coords)
+        return self._attention_logits(self._device_bags(bags, target, len(bags)), n,
+                                      self._device_coords(bag_coords, target, len(bags)))
 
-    def _attention_logits(self, x: torch.Tensor, n: int) -> tuple[np.ndarray, np.ndarray]:
-        """The head's ``return_attn`` forward (its layers' plain path) on the
-        padded device bags ``x`` -> (logits, scores of the first n tiles)."""
+    def _attention_logits(self, x: torch.Tensor, n: int,
+                          c: torch.Tensor | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """The head's ``return_attn`` forward on the padded device bags ``x``
+        -> (logits, scores of the first n tiles): a payload's
+        ``tile_scores()`` or the raw weights, any axis between the batch and
+        the tiles averaged (JAX ``_attn_forward``)."""
         if not self.meta.get("attention"):
             raise ValueError("bundle exported without attention; re-export with attention=True")
         with torch.inference_mode():
-            logits, attn = self.model(x, return_attn=True)
-            scores = attn.tile_scores().mean(dim=1)
+            logits, attn = self._forward(x, c, return_attn=True)
+            raw = attn.tile_scores() if hasattr(attn, "tile_scores") else attn
+            scores = raw.reshape(x.shape[0], -1, x.shape[1]).mean(dim=1)
             return logits.cpu().numpy(), scores[:, :n].cpu().numpy()
 
     # ------------------------------------------------------- slide bundles
@@ -461,22 +537,24 @@ class ServingBundle:
             lambda batch: embed_chunk(self._embed_core, batch, self._mean, self._std),
             tiles, int(self.meta["chunk"]))
 
-    def _slide_bag(self, tiles: np.ndarray, coords) -> tuple[int, torch.Tensor]:
-        """(n, the (1, bucket, D) bag on the device): the bucket is chosen
-        before the embed, so a slide beyond the largest bucket fails at once;
-        the zero pad is made on the device."""
+    def _slide_bag(self, tiles: np.ndarray, coords):
+        """(n, the (1, bucket, D) bag on the device, its (1, bucket, 2)
+        coords or None): the bucket is chosen before the embed, so a slide
+        beyond the largest bucket fails at once; the zero pad is made on the
+        device."""
         n = int(np.shape(tiles)[0])
         target = self._pad_target(n)
-        _refuse_coords(coords, "slide bundle's")
+        c = self._bag_coords(coords, n, target, "slide bundle's")
         feats = self.embed_tiles(tiles)
-        return n, torch.nn.functional.pad(feats, (0, 0, 0, target - n))[None]
+        return (n, torch.nn.functional.pad(feats, (0, 0, 0, target - n))[None],
+                self._device_coords(None if c is None else [c], target, 1))
 
     def predict_slide_logits(self, tiles: np.ndarray, coords=None) -> np.ndarray:
-        """(N, H, W, 3) tiles (float32 normalized or uint8 raw) -> (C,)
-        slide logits."""
-        _, x = self._slide_bag(tiles, coords)
+        """(N, H, W, 3) tiles (float32 normalized or uint8 raw), with their
+        (N, 2) grid coords for a coord-aware head -> (C,) slide logits."""
+        _, x, c = self._slide_bag(tiles, coords)
         with torch.inference_mode():
-            return self.model(x).cpu().numpy()[0]
+            return self._forward(x, c).cpu().numpy()[0]
 
     def predict_slide(self, tiles: np.ndarray, coords=None) -> np.ndarray:
         """(N, H, W, 3) tiles -> (C,) slide class probabilities."""
@@ -485,8 +563,8 @@ class ServingBundle:
     def predict_slide_logits_with_attention(self, tiles: np.ndarray,
                                             coords=None) -> tuple[np.ndarray, np.ndarray]:
         """(N, H, W, 3) tiles -> ((C,) logits, (N,) per-tile attention scores)."""
-        n, x = self._slide_bag(tiles, coords)
-        logits, scores = self._attention_logits(x, n)
+        n, x, c = self._slide_bag(tiles, coords)
+        logits, scores = self._attention_logits(x, n, c)
         return logits[0], scores[0]
 
     def predict_slide_with_attention(self, tiles: np.ndarray,
@@ -560,15 +638,17 @@ class MicroBatcher:
             self._depth -= k
 
     def predict_logits(self, feats: np.ndarray, coords=None) -> np.ndarray:
-        """(n, D) / (B, n, D) features -> (B, C) logits (B bags enqueue as B
-        independent micro-batchable requests)."""
-        _refuse_coords(coords)
+        """(n, D) / (B, n, D) features, with (n, 2) / (B, n, 2) coords for a
+        coord-aware bundle -> (B, C) logits (B bags enqueue as B independent
+        micro-batchable requests)."""
         feats = np.asarray(feats, np.float32)
         if feats.ndim == 2:
             feats = feats[None]
+            coords = None if coords is None else np.asarray(coords)[None]
         if feats.ndim != 3:
             raise ValueError(f"features must be (n, D) or (B, n, D), got {feats.shape}")
-        futures = [self._enqueue(f) for f in feats]
+        futures = [self._enqueue(f, None if coords is None else coords[i])
+                   for i, f in enumerate(feats)]
         return np.stack([f.result() for f in futures])
 
     def predict(self, feats: np.ndarray, coords=None) -> np.ndarray:
@@ -578,7 +658,7 @@ class MicroBatcher:
         self._q.put(self._CLOSE)
         self._thread.join(timeout=5)
 
-    def _enqueue(self, feats: np.ndarray):
+    def _enqueue(self, feats: np.ndarray, coords=None):
         """Admission-check, then validate on the request thread; returns a
         Future."""
         from concurrent.futures import Future
@@ -591,12 +671,13 @@ class MicroBatcher:
                 )
             self._depth += 1
         try:
-            _, target, feats = self.bundle._prepare_one(feats)
+            n, target, feats = self.bundle._prepare_one(feats)
+            coords = self.bundle._bag_coords(coords, n, target)
         except BaseException:
             self._release()
             raise
         fut: Future = Future()
-        self._q.put((target, feats, fut))
+        self._q.put((target, feats, coords, fut))
         return fut
 
     def _run(self) -> None:
@@ -656,12 +737,13 @@ class MicroBatcher:
 
     def _dispatch(self, group: list) -> None:
         try:
+            coords = None if group[0][2] is None else [g[2] for g in group]
             with self._device_lock:  # the batch is filled with zero bags
-                logits = self.bundle._logits([g[1] for g in group], group[0][0], self.eb)
-            for i, (_, _, fut) in enumerate(group):
+                logits = self.bundle._logits([g[1] for g in group], group[0][0], self.eb, coords)
+            for i, (*_, fut) in enumerate(group):
                 fut.set_result(logits[i])
         except Exception as e:  # noqa: BLE001 - deliver to every waiter
-            for _, _, fut in group:
+            for *_, fut in group:
                 if not fut.done():
                     fut.set_exception(e)
         finally:

@@ -6,6 +6,9 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
   mode, backward, one micro-step of the optimizer (grad accumulation inside
   it, ``train/optimizers.py``); dropout on unless ``train_deterministic``,
   its mask drawn from a ``torch.Generator`` seeded from ``seed + 1``;
+- the forward is the head's own: a coord-aware head (RoFormerMIL) gets
+  ``Batch.padded_coords`` as its second argument, or the square-grid
+  fallback when the batch has none, as the JAX Trainer stages them;
 - validation/test: per-slide probabilities in eval mode (TransMIL's fused
   K1/K2 path on the card), slide CE loss, slide and patient AUROC (positive
   slide filter), classification reports, Youden-J thresholds persisted to
@@ -24,8 +27,8 @@ Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 of the JAX Trainer.
 
 Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
-attention tile export, tile-level aggregation, DTFD, coord-aware heads,
-meshes and prefetch threads.
+attention tile export, tile-level aggregation, DTFD, meshes and prefetch
+threads.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from transmil_deepgraft_tpu_torch.train.losses import LossFn
 from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_report, youden_j_threshold
 from transmil_deepgraft_tpu_torch.train.optimizers import Optimizer
 from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager, read_checkpoint
-from transmil_deepgraft_tpu_torch.utils.jax_params import optimizer_state_from_jax, state_dict_from_jax
+from transmil_deepgraft_tpu_torch.utils.jax_params import (
+    head_state_dict_from_jax, optimizer_state_from_jax)
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
 # Class names per task (ref ``code/utils/utils.py:37-53``), for the result CSVs.
@@ -147,6 +151,9 @@ class Trainer:
         self.loss_fn = loss_fn
         self.cfg = config
         self.model_name = model_name
+        # coord-aware heads take the tile grid coordinates as a second
+        # forward argument
+        self.coord_aware = bool(getattr(model, "coord_aware", False))
         self.device = next(model.parameters()).device
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         for m in model.modules():
@@ -174,17 +181,25 @@ class Trainer:
                 if isinstance(m, torch.nn.Dropout):
                     m.eval()
 
-    def loss(self, bags: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, bags: torch.Tensor, coords: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The head's logits: ``coords`` go to a coord-aware head (None: its
+        square-grid fallback, the JAX Trainer's ``grid_coords``), and to no
+        other."""
+        return self.model(bags, coords) if self.coord_aware else self.model(bags)
+
+    def loss(self, bags: torch.Tensor, labels: torch.Tensor,
+             coords: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The train forward: (loss, logits) of one batch, in train mode."""
         self._train_mode()
-        logits = self.model(bags)
+        logits = self.forward(bags, coords)
         return self.loss_fn(logits, F.one_hot(labels, self.n_classes).float()), logits
 
-    def train_step(self, bags: torch.Tensor, labels: torch.Tensor) -> tuple[float, np.ndarray]:
+    def train_step(self, bags: torch.Tensor, labels: torch.Tensor,
+                   coords: Optional[torch.Tensor] = None) -> tuple[float, np.ndarray]:
         """One micro-step: forward, backward, optimizer. Returns (loss, probs)."""
         for p in self.model.parameters():
             p.grad = None
-        loss, logits = self.loss(bags, labels)
+        loss, logits = self.loss(bags, labels, coords)
         loss.backward()
         self.tx.step()
         return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
@@ -192,6 +207,13 @@ class Trainer:
     def _batch_tensors(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         bags = torch.from_numpy(batch.bags).to(self.device)
         return bags, torch.as_tensor(batch.labels, dtype=torch.long, device=self.device)
+
+    def _batch_coords(self, batch) -> Optional[torch.Tensor]:
+        """The batch's (B, N, 2) padded coords on the device, for a
+        coord-aware head (None otherwise, or when the bags carry none)."""
+        if not self.coord_aware or batch.padded_coords is None:
+            return None
+        return torch.from_numpy(batch.padded_coords).to(self.device)
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> dict[str, float]:
@@ -255,7 +277,8 @@ class Trainer:
                 int(np.random.SeedSequence([self.cfg.seed + 1, epoch]).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
             for step, batch in enumerate(self.dm.train_batches(epoch)):
-                loss, probs = self.train_step(*self._batch_tensors(batch))
+                loss, probs = self.train_step(*self._batch_tensors(batch),
+                                              self._batch_coords(batch))
                 losses.append(loss)
                 train_probs.append(probs)
                 train_labels.append(batch.labels)
@@ -317,7 +340,12 @@ class Trainer:
 
     # --------------------------------------------------------- checkpoints
     def _in_features(self) -> int:
-        return self.model._fc1[0].in_features
+        """The head's input width: the in_features of its first Linear or
+        Conv1d (the fc1 MLP, Chowder's scorer, MONAI's ``myfc``)."""
+        for m in self.model.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)):
+                return m.in_features if isinstance(m, torch.nn.Linear) else m.in_channels
+        raise ValueError("the model has no Linear layer")
 
     def load_checkpoint(self, path: str | Path) -> None:
         """Weights only, from any checkpoint of the port (``{"model": ...}``)
@@ -327,7 +355,8 @@ class Trainer:
         if "model" in obj:
             self.model.load_state_dict(obj["model"])
         elif "params" in obj:
-            self.model.load_state_dict(state_dict_from_jax(obj["params"], self._in_features()))
+            self.model.load_state_dict(head_state_dict_from_jax(self.model_name, obj["params"],
+                                                                self._in_features()))
         else:
             raise ValueError(f"no weights in checkpoint {path}")
 
@@ -345,7 +374,8 @@ class Trainer:
             state = obj["optimizer"]
         else:
             names = [n for n, _ in self.model.named_parameters()]
-            state = optimizer_state_from_jax(obj["opt_state"], self._in_features(), names)
+            state = optimizer_state_from_jax(obj["opt_state"], self._in_features(), names,
+                                             self.model_name)
         self.tx.load_state_dict(state)
         fit = obj["fit"]
         self._resume_fit_state = {k: type(v)(np.asarray(fit[k])) for k, v in _FIT_START.items()
@@ -359,7 +389,7 @@ class Trainer:
         self.model.eval()
         with torch.inference_mode():
             for batch in self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size):
-                logits = self.model(self._batch_tensors(batch)[0])
+                logits = self.forward(self._batch_tensors(batch)[0], self._batch_coords(batch))
                 all_probs.append(torch.softmax(logits, dim=-1).cpu().numpy())
                 all_logits.append(logits.cpu().numpy())
                 all_labels.append(batch.labels)

@@ -7,6 +7,11 @@ e.g. from :func:`unflatten` of an ``.npz`` written with :func:`flatten`. Dense
 kernels (in, out) are transposed to torch (out, in); ``res_conv`` (33, heads)
 becomes (heads, 1, 33, 1); the PPEG kernels (k, k, 1, C) become (C, 1, k, k).
 
+The other heads (:func:`head_state_dict_from_jax`): one table a head,
+:func:`head_layout`, pairs each flax leaf with its key in the port's
+``state_dict`` and the transform between them; ``utils/torch_weights`` reads
+the same tables backwards for the reference's ``.pth`` converters.
+
 ResNet (:func:`resnet_state_dict_from_jax`) and the int8 ResNet50
 (:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
 the optax state of ``create_optimizer`` (moments, slow weights, counters, the
@@ -86,6 +91,152 @@ def state_dict_from_jax(params: Mapping[str, Any], in_features: int) -> dict[str
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+# (flax leaf path "a/b/c", port state_dict key, transform) of one head; the
+# transforms: "id", "T" (a Dense kernel (in, out) <-> a Linear weight
+# (out, in)), "conv1d" (Chowder's scorer kernel (L, 1) <-> Conv1d (1, L, 1))
+Layout = list[tuple[str, str, str]]
+TO_TORCH = {"id": lambda a: a, "T": lambda a: a.T, "conv1d": lambda a: a.T[:, :, None]}
+TO_FLAX = {"id": lambda w: w, "T": lambda w: w.T, "conv1d": lambda w: w[:, :, 0].T}
+
+
+def _dense(flax: str, key: str, bias: bool = True) -> Layout:
+    return [(f"{flax}/kernel", f"{key}.weight", "T")] + (
+        [(f"{flax}/bias", f"{key}.bias", "id")] if bias else [])
+
+
+def _norm(flax: str, key: str) -> Layout:
+    return [(f"{flax}/scale", f"{key}.weight", "id"), (f"{flax}/bias", f"{key}.bias", "id")]
+
+
+def _gated_attention_layout(prefix: str = "") -> Layout:
+    """The raw gated-attention params of ``ops/pooling.gated_attention_pool``
+    (weight (in, out) plus a separate bias) <-> the reference's
+    ``attention_V.0`` / ``attention_U.0`` / ``attention_weights`` Linears."""
+    out: Layout = []
+    for name in ("attention_V", "attention_U"):
+        out += [(name, f"{prefix}{name}.0.weight", "T"),
+                (f"{name}_bias", f"{prefix}{name}.0.bias", "id")]
+    return out + [("attention_weights", f"{prefix}attention_weights.weight", "T"),
+                  ("attention_weights_bias", f"{prefix}attention_weights.bias", "id")]
+
+
+def _torch_encoder_layout(flax: str, key: str, num_layers: int) -> Layout:
+    """``TorchTransformerEncoder`` <-> torch ``nn.TransformerEncoder``."""
+    out: Layout = []
+    for i in range(num_layers):
+        f, k = f"{flax}/layers_{i}", f"{key}.layers.{i}"
+        out += [(f"{f}/in_proj/kernel", f"{k}.self_attn.in_proj_weight", "T"),
+                (f"{f}/in_proj/bias", f"{k}.self_attn.in_proj_bias", "id")]
+        out += _dense(f"{f}/out_proj", f"{k}.self_attn.out_proj")
+        out += _dense(f"{f}/linear1", f"{k}.linear1") + _dense(f"{f}/linear2", f"{k}.linear2")
+        out += _norm(f"{f}/norm1", f"{k}.norm1") + _norm(f"{f}/norm2", f"{k}.norm2")
+    return out
+
+
+def _head_fc1_layout(key: str, two_stage: bool, mid_norm: bool) -> Layout:
+    """The heads' fc1 MLP, Sequential indices 0 (Linear), 3 (LayerNorm),
+    4 (Linear): ``two_stage`` the 2048 branch, ``mid_norm`` a LayerNorm
+    after the first Linear."""
+    out = _dense("fc1_0", f"{key}.0")
+    if two_stage or mid_norm:
+        out += _norm("fc1_norm0", f"{key}.3")
+    if two_stage:
+        out += _dense("fc1_1", f"{key}.4")
+    return out
+
+
+def head_layout(model_name: str, in_features: int, *, depth: int = 4,
+                mil_mode: str = "att_trans", trans_blocks: int = 4) -> Layout:
+    """The carry-over table of a head other than TransMIL: ``depth`` is
+    RoFormerMIL's, ``mil_mode`` and ``trans_blocks`` MonaiMIL's."""
+    if model_name == "AttMIL":
+        return (_head_fc1_layout("_fc1", in_features == 2048, True)
+                + _gated_attention_layout() + _dense("classifier", "classifier.0"))
+    if model_name == "TransformerMIL":
+        out = [("cls_token", "cls_token", "id")]
+        out += _head_fc1_layout("fc1", in_features == 2048, in_features == 1024)
+        for t in ("transformer1", "transformer2"):
+            for i in range(2):
+                k = f"{t}.layers.{i}"
+                out += _norm(f"{t}/attn_norm_{i}", f"{k}.0.norm")
+                out += _dense(f"{t}/attn_{i}/to_qkv", f"{k}.0.fn.to_qkv", bias=False)
+                out += _dense(f"{t}/attn_{i}/to_out", f"{k}.0.fn.to_out.0")
+                out += _norm(f"{t}/ff_norm_{i}", f"{k}.1.norm")
+                out += _dense(f"{t}/ff_{i}/Dense_0", f"{k}.1.fn.net.0")
+                out += _dense(f"{t}/ff_{i}/Dense_1", f"{k}.1.fn.net.3")
+        return out + _norm("norm", "norm") + _dense("fc2", "_fc2")
+    if model_name == "Chowder":
+        out = [("f1/kernel", "f1.0.weight", "conv1d"), ("f1/bias", "f1.0.bias", "id")]
+        for j in range(3):
+            out += _dense(f"f2_{j}", f"f2.{j}")
+        return out
+    if model_name in ("AttTrans", "MonaiMILModel"):
+        out = _dense("myfc", "myfc")
+        if mil_mode in ("att", "att_trans"):
+            out += _dense("attention_0", "attention.0") + _dense("attention_1", "attention.2")
+        if mil_mode == "att_trans":
+            out += _torch_encoder_layout("transformer", "transformer", trans_blocks)
+        return out
+    if model_name == "RoFormerMIL":
+        out = [("cls_token", "cls_token", "id")]
+        out += _head_fc1_layout("fc1", in_features >= 2048, False)
+        for i in range(depth):
+            out += _norm(f"attn_norm_{i}", f"attn_norm_{i}")
+            out += _dense(f"attn_{i}/to_qkv", f"attn_{i}.to_qkv", bias=False)
+            out += _dense(f"attn_{i}/to_out", f"attn_{i}.to_out")
+            out += _norm(f"ff_norm_{i}", f"ff_norm_{i}")
+            out += _dense(f"Dense_{2 * i}", f"ff_{i}.0") + _dense(f"Dense_{2 * i + 1}", f"ff_{i}.2")
+        return out + _norm("norm", "norm") + _dense("fc2", "fc2")
+    raise KeyError(f"no weight layout for model '{model_name}'")
+
+
+def _layout_knobs(model_name: str, params: Mapping[str, Any]) -> dict:
+    """The :func:`head_layout` knobs a head's flax params show: RoFormerMIL's
+    depth, MonaiMIL's parts (mean and max hold the same ``myfc`` alone)."""
+    if model_name == "RoFormerMIL":
+        return {"depth": sum(1 for k in params if k.startswith("attn_norm_"))}
+    if model_name in ("AttTrans", "MonaiMILModel"):
+        if "transformer" in params:
+            return {"mil_mode": "att_trans", "trans_blocks": len(params["transformer"])}
+        return {"mil_mode": "att" if "attention_0" in params else "mean"}
+    return {}
+
+
+def head_knobs_from_params(model_name: str, params: Mapping[str, Any],
+                           knobs: Mapping[str, Any] | None = None) -> dict:
+    """The constructor knobs of the head that ``params`` hold: the given
+    ``knobs`` (those the weights do not show) over the structural ones the
+    weights show (RoFormerMIL's depth, mlp_dim and its dim_head for the
+    given ``heads``, MonaiMIL's mil_mode and trans_blocks). MonaiMIL's
+    'mean' and 'max' hold the same weights: their ``mil_mode`` must be given."""
+    knobs = dict(knobs or {})
+    shown = _layout_knobs(model_name, params)
+    if model_name == "RoFormerMIL":
+        shown["mlp_dim"] = int(np.shape(params["Dense_0"]["kernel"])[1])
+        inner = int(np.shape(params["attn_0"]["to_qkv"]["kernel"])[1]) // 3
+        shown["dim_head"] = inner // int(knobs.get("heads", 8))
+    if model_name in ("AttTrans", "MonaiMILModel") and shown["mil_mode"] == "mean":
+        if knobs.get("mil_mode") not in ("mean", "max"):
+            raise ValueError(f"{model_name} weights without attention are a 'mean' or a 'max' "
+                             "head, which the weights do not tell apart: give the mil_mode "
+                             "knob")
+        del shown["mil_mode"]
+    return {**shown, **knobs}
+
+
+def head_state_dict_from_jax(model_name: str, params: Mapping[str, Any],
+                             in_features: int) -> dict[str, torch.Tensor]:
+    """Flax ``params`` of a ported head -> the port's ``state_dict`` (CPU
+    float32 tensors): TransMIL through :func:`state_dict_from_jax`, the
+    others through their :func:`head_layout`."""
+    if model_name == "TransMIL":
+        return state_dict_from_jax(params, in_features)
+    flat = flatten(params)
+    layout = head_layout(model_name, in_features, **_layout_knobs(model_name, params))
+    return {key: torch.from_numpy(np.array(TO_TORCH[kind](flat[path]), dtype=np.float32))
+            for path, key, kind in layout}
+
+
 def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax ResNet ``{'params', 'batch_stats'}`` (numpy leaves) -> the port's
     ``models/resnet.ResNet`` ``state_dict``: HWIO conv kernels become OIHW,
@@ -152,12 +303,14 @@ def _optax_fields(node: Any, found: dict) -> None:
             _optax_fields(value, found)
 
 
-def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str]) -> dict:
+def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
+                             model_name: str = "TransMIL") -> dict:
     """The optax state of the JAX package's ``create_optimizer`` (numpy
     leaves, e.g. after ``jax.device_get``, or the ``opt_state`` map of a JAX
     ``last.ckpt``) -> a state for the port's
     ``Optimizer.load_state_dict``, each per-parameter list ordered as
-    ``names`` (the model's ``named_parameters`` order).
+    ``names`` (the model's ``named_parameters`` order); the moment trees
+    have the params' layout, so ``model_name``'s carry-over maps them.
 
     Reads ``ScaleByAdamState`` (count, mu, nu), ``TraceState`` (trace),
     ``LookaheadState`` (slow_params, step), ``MultiStepsState`` (mini_step,
@@ -167,7 +320,7 @@ def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str])
     _optax_fields(opt_state, found)
 
     def per_param(tree: Any) -> list[torch.Tensor]:
-        sd = state_dict_from_jax(tree, in_features)
+        sd = head_state_dict_from_jax(model_name, tree, in_features)
         return [sd[name] for name in names]
 
     state = {"count": int(np.asarray(found.get("count", 0))),

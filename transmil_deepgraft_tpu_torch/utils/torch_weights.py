@@ -1,5 +1,6 @@
 """Torch state dicts -> flax-layout parameter trees (the port's copy of the
-TransMIL and ResNet converters of ``utils/torch_weights.py``).
+TransMIL, ResNet, AttMIL, TransformerMIL, Chowder and MONAI MIL converters of
+``utils/torch_weights.py``, and a RoFormerMIL one of its own).
 
 The reference's checkpoints (``retccl_best_ckpt.pth``, torchvision ResNets,
 TransMIL Lightning checkpoints, the port's own trainer checkpoints, which use
@@ -8,8 +9,11 @@ port's bundles and pipelines take (``utils/jax_params`` maps it onto the
 port's modules). Pure name and transpose mapping on numpy arrays: torch
 ``Conv2d.weight (O,I,H,W)`` -> ``kernel (H,W,I,O)``, ``Linear.weight (O,I)``
 -> ``kernel (I,O)``, BatchNorm weight/bias/running_mean/running_var ->
-scale/bias + batch_stats mean/var. The other heads' converters come with
-their heads.
+scale/bias + batch_stats mean/var. The heads other than TransMIL read the
+carry-over tables of ``utils/jax_params.head_layout`` backwards, so a
+converter and :func:`~transmil_deepgraft_tpu_torch.utils.jax_params.head_state_dict_from_jax`
+are each other's inverse; the port's modules of those heads use the
+reference's names, so their state dicts convert the same way.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Mapping
 import numpy as np
 
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+from transmil_deepgraft_tpu_torch.utils.jax_params import TO_FLAX, head_layout, unflatten
 
 
 def _np(t: Any) -> np.ndarray:
@@ -194,6 +199,84 @@ def _nest(flat: Mapping[str, Any]) -> dict:
     return nested
 
 
+def _from_layout(state_dict: Mapping[str, Any], model_name: str, in_features: int,
+                 **knobs: Any) -> dict:
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    return {"params": unflatten({path: TO_FLAX[kind](_np(sd[key]))
+                                 for path, key, kind in head_layout(model_name, in_features,
+                                                                    **knobs)})}
+
+
+def _count(sd: Mapping[str, Any], fmt: str) -> int:
+    """How many consecutive i have ``fmt.format(i)`` among the keys."""
+    keys = {k.removeprefix("model.") for k in sd}
+    i = 0
+    while fmt.format(i) in keys:
+        i += 1
+    return i
+
+
+def convert_attmil_state_dict(state_dict: Mapping[str, Any], in_features: int = 2048) -> dict:
+    """torch AttMIL (ref ``AttMIL.py:20-110``) -> ``{'params': ...}``."""
+    return _from_layout(state_dict, "AttMIL", in_features)
+
+
+def convert_transformer_mil_state_dict(state_dict: Mapping[str, Any],
+                                       in_features: int = 2048) -> dict:
+    """torch TransformerMIL (ref ``TransformerMIL.py:74-152``, the active
+    forward) -> ``{'params': ...}``."""
+    return _from_layout(state_dict, "TransformerMIL", in_features)
+
+
+def convert_chowder_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torch Chowder (ref ``Chowder.py:19-50``: a Conv1d(L, 1, 1) scorer and
+    a 3-layer MLP) -> ``{'params': ...}``."""
+    return _from_layout(state_dict, "Chowder", 0)
+
+
+def convert_monai_mil_state_dict(state_dict: Mapping[str, Any],
+                                 mil_mode: str = "att_trans") -> dict:
+    """torch MONAI MILModel head (ref ``MonaiMILModel.py:11-232``) ->
+    ``{'params': ...}``; the encoder's depth comes from the keys. Backbone
+    keys (``net.*``) are not read."""
+    if mil_mode == "att_trans_pyramid":
+        raise NotImplementedError("MonaiMIL att_trans_pyramid is not ported yet (ROADMAP A8)")
+    blocks = _count(state_dict, "transformer.layers.{}.self_attn.in_proj_weight")
+    if mil_mode == "att_trans" and not blocks:
+        raise KeyError("no encoder layers under 'transformer.'")
+    return _from_layout(state_dict, "AttTrans", 0, mil_mode=mil_mode, trans_blocks=blocks)
+
+
+def convert_roformer_mil_state_dict(state_dict: Mapping[str, Any],
+                                    in_features: int = 2048) -> dict:
+    """The port's RoFormerMIL state dict -> ``{'params': ...}`` (the JAX
+    package has no torch RoFormerMIL); the depth comes from the keys."""
+    return _from_layout(state_dict, "RoFormerMIL", in_features,
+                        depth=_count(state_dict, "attn_norm_{}.weight"))
+
+
+def convert_head_state_dict(state_dict: Mapping[str, Any], model_name: str,
+                            in_features: int) -> dict:
+    """A torch state dict of any ported head -> ``{'params': ...}``."""
+    if model_name == "TransMIL":
+        return convert_transmil_state_dict(state_dict, in_features)
+    if model_name == "Chowder":
+        return convert_chowder_state_dict(state_dict)
+    if model_name in ("AttTrans", "MonaiMILModel"):
+        # the parts the keys hold; 'mean' and 'max' hold the same myfc alone,
+        # so the layout of one is the other's (the mode is a knob of the head)
+        keys = {k.removeprefix("model.") for k in state_dict}
+        parts = ("att_trans" if "transformer.layers.0.norm1.weight" in keys
+                 else "att" if "attention.0.weight" in keys else "mean")
+        return convert_monai_mil_state_dict(state_dict, parts)
+    converters = {"AttMIL": convert_attmil_state_dict,
+                  "TransformerMIL": convert_transformer_mil_state_dict,
+                  "RoFormerMIL": convert_roformer_mil_state_dict}
+    if model_name not in converters:
+        raise KeyError(f"no torch converter for {model_name!r}")
+    return converters[model_name](state_dict, in_features)
+
+
 def load_torch_checkpoint(path: str) -> dict:
     """Load a .pth/.ckpt with torch (CPU); returns the raw state dict
     (unwraps Lightning's ``state_dict`` key). Unpickles: load only files
@@ -212,13 +295,17 @@ def _is_torch_file(path: str | Path) -> bool:
     return str(path).endswith((".pth", ".pt")) or zipfile.is_zipfile(path)
 
 
-def load_head_params(path: str | Path, in_features: int) -> dict:
-    """TransMIL weights from a checkpoint -> flax-layout params: a torch
+def load_head_params(path: str | Path, in_features: int, model_name: str = "TransMIL") -> dict:
+    """A head's weights from a checkpoint -> flax-layout params: a torch
     state dict in the reference's names (a ``.pth``, a Lightning ``.ckpt``,
-    the port's trainer checkpoints) or a flax msgpack tree (a variables
-    tree or the JAX trainer's checkpoint, whose ``params`` are taken)."""
+    the port's trainer checkpoints, whose weights are under ``model``),
+    converted by ``model_name``, or a flax msgpack tree (a variables tree or
+    the JAX trainer's checkpoint, whose ``params`` are taken)."""
     if _is_torch_file(path):
-        return convert_transmil_state_dict(load_torch_checkpoint(str(path)), in_features)["params"]
+        sd = load_torch_checkpoint(str(path))
+        if isinstance(sd.get("model"), Mapping):  # the port's trainer checkpoints
+            sd = sd["model"]
+        return convert_head_state_dict(sd, model_name, in_features)["params"]
     tree = read_flax_msgpack(Path(path).read_bytes())
     if isinstance(tree, dict) and "params" in tree:
         return tree["params"]
