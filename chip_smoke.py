@@ -81,7 +81,19 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    AttMIL and RoFormerMIL, ``cli.serve``'s /predict with coords, and
    ``cli.infer --model RoFormerMIL`` on 256 JPEG tiles named with their
    coordinates, within 1e-3 of the in-process slide bundle. No head runs one
-   of the eight kernels; the launch counts of every route are checked.
+   of the eight kernels; the launch counts of every route are checked;
+12. the rest of the bag-head zoo and the spatial heads: the five frozen
+   torch-parity fixtures of CLAM_SB/MB, DTFD, MDMIL and CTMIL; feature bags
+   of 300, 12,000 and 40,960 tiles through ServingBundle + MicroBatcher of
+   CLAM_SB-1024, CLAM_MB-1024, DTFD-512, MDMIL-1024 and DSMIL-2048, MDMIL's
+   TransLayers through K1/K2 (2 launches each a request) and held to its
+   plain route within 1e-4 up to 12,000 tiles; CTMIL-2048 (K1/K2) and
+   SpatialResNetMIL-768 eval forwards on 50 x 50 volumes at their configs'
+   train batch (128, 8), CTMIL held to its plain route; ``cli.train`` of
+   DTFDMIL_resnet50_tcmr_viral.yaml (two tier-wise Adams, batch 1),
+   CTMIL_feat_norm_rest.yaml and Resnet50_feat_norm_rest.yaml (the spatial
+   variant's volumes) as written but for paths and 2 epochs, with exact
+   K1/K2 counts and the optimizer step at each config's batch.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -178,6 +190,26 @@ HEAD_CONFIGS = ("DeepGraft/AttMIL_feat_norm_rest.yaml",
 HEAD_SPLITS = {2048: {"train": 32, "val": 16, "test": 16},
                768: {"train": 128, "val": 16, "test": 16}}  # one micro-step of 128 an epoch
 HEAD_STEPS = 3  # optimizer steps timed a config after a warm-up one
+# the zoo phase: the rest of the bag heads and the two spatial heads, at full
+# width from seeded random weights
+ZOO_FIXTURES = ("clam_sb", "clam_mb", "dtfd", "mdmil", "ctmil")
+ZOO_SERVED = {"CLAM_SB-1024": ("CLAM_SB", 1024), "CLAM_MB-1024": ("CLAM_MB", 1024),
+              "DTFD-512": ("DTFD", 512), "MDMIL-1024": ("MDMIL", 1024),
+              "DSMIL-2048": ("DSMIL", 2048)}
+ZOO_HELD = "MDMIL-1024"  # its TransLayers run K1/K2, held to the plain route to 12,000 tiles
+# the spatial heads' eval forward at their configs' train batch on 50 x 50 volumes
+ZOO_VOLUMES = {"CTMIL-2048": ("CTMIL", 2048, 128), "SpatialResNetMIL-768": ("resnet50", 768, 8)}
+ZOO_CONFIGS = ("DeepGraft/DTFDMIL_resnet50_tcmr_viral.yaml", "DeepGraft/CTMIL_feat_norm_rest.yaml",
+               "DeepGraft/Resnet50_feat_norm_rest.yaml")
+# the cohorts by in_features: one micro-step of CTMIL's batch of 128 an
+# epoch (its grad_acc 2 completes one optimizer step in the 2 epochs), one
+# optimizer step of Resnet50's 2 x 8 an epoch
+ZOO_SPLITS = {512: {"train": 32, "val": 16, "test": 16},
+              2048: {"train": 128, "val": 16, "test": 16},
+              768: {"train": 16, "val": 16, "test": 16}}
+# the spatial cohorts' tiles a slide: .npy bags carry no coordinates, so
+# every tile of a volume sits at grid (0, 0) and the count only costs writing
+ZOO_SPATIAL_TILES = (20, 40)
 
 
 def log(msg: str) -> None:
@@ -1378,9 +1410,9 @@ def phase_train(results: dict, dev) -> None:
 
 
 def write_cohort(root: Path, rng, dim: int = 2048, splits: dict | None = None,
-                 tag: str = "cli_train") -> dict:
+                 tag: str = "cli_train", tiles: tuple[int, int] = CLI_TILES) -> dict:
     """A cohort under ``root``: per-slide ``dim``-d float32 .npy bags of
-    ``CLI_TILES`` tiles (a class signal on 64 features), ``splits`` (default
+    ``tiles`` tiles (a class signal on 64 features), ``splits`` (default
     ``CLI_SPLITS``) slides a split, a label JSON whose paths carry
     ``FEATURES_RETCCL_2048``, a patient map of two slides (one label) a
     patient. Returns the config's ``Data`` paths."""
@@ -1394,7 +1426,7 @@ def write_cohort(root: Path, rng, dim: int = 2048, splits: dict | None = None,
         labels[split] = []
         for i in range(count):
             name, y = f"{split}_{i:03d}", (i // 2) % 2
-            x = rng.standard_normal((int(rng.integers(CLI_TILES[0], CLI_TILES[1] + 1)), dim),
+            x = rng.standard_normal((int(rng.integers(tiles[0], tiles[1] + 1)), dim),
                                     dtype=np.float32)
             x[:, :64] += 0.25 * y
             np.save(data / f"{name}.npy", x)
@@ -1403,7 +1435,7 @@ def write_cohort(root: Path, rng, dim: int = 2048, splits: dict | None = None,
             patients[name] = f"{split}_patient_{i // 2:03d}"
     (root / "labels.json").write_text(json.dumps(labels))
     (root / "patients.json").write_text(json.dumps(patients))
-    log(f"[{tag}] cohort: {sum(splits.values())} slides of {CLI_TILES[0]}-{CLI_TILES[1]} "
+    log(f"[{tag}] cohort: {sum(splits.values())} slides of {tiles[0]}-{tiles[1]} "
         f"tiles x {dim}, {total / 2**30:.2f} GiB of .npy")
     return {"data_dir": str(root / "data"), "label_file": str(root / "labels.json"),
             "patient_dict": str(root / "patients.json")}
@@ -1462,7 +1494,7 @@ def time_steps(trainer, batches: list, label: str) -> None:
     import torch
 
     dev, acc = trainer.device, trainer.tx.grad_accum_steps
-    trainer.tx.init(trainer.model.parameters())
+    trainer.tx.init(trainer.model)
     staged = [trainer._batch_tensors(b) for b in batches]
     parts = []
     for i in range(0, len(staged) - acc + 1, acc):
@@ -1698,7 +1730,7 @@ def head_step_ms(trainer, batches: list) -> tuple[float, float]:
     import numpy as np
 
     dev = trainer.device
-    trainer.tx.init(trainer.model.parameters())
+    trainer.tx.init(trainer.model)
     staged = [(*trainer._batch_tensors(b), trainer._batch_coords(b)) for b in batches]
     steps = []
     for _ in range(1 + HEAD_STEPS):
@@ -1710,6 +1742,26 @@ def head_step_ms(trainer, batches: list) -> tuple[float, float]:
         steps.append((time.perf_counter() - t0) * 1e3)
     steps = steps[1:]
     return float(np.median(steps)), float(min(steps))
+
+
+def all_launch_counts(run):
+    """(run's result, the launches of all eight kernels during it): every
+    count is set to 0 just before and read just after."""
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+
+    for mod in (nk, qk, tk):
+        mod.reset_launch_counts()
+    out = run()
+    return out, {**nk.LAUNCHES, **qk.LAUNCHES, **tk.LAUNCHES}
+
+
+def expect_launches_exactly(label: str, got: dict, **want) -> None:
+    """Each kernel launched ``want[name]`` times during the run (0 if not named)."""
+    wanted = {k: want.get(k, 0) for k in got}
+    if got != wanted:
+        raise AssertionError(f"{label}: expected launches {wanted}, got {got}")
 
 
 def phase_heads(rng, results: dict, dev, variables) -> None:
@@ -1757,22 +1809,6 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
         """Close the phase's part ``name``: its seconds since the last one."""
         now = time.perf_counter()
         parts[name] = now - sum(parts.values()) - t_phase
-
-    def all_counts(run):
-        """(run's result, the launches of all eight kernels during it)."""
-        from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
-        from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
-        from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
-
-        for mod in (nk, qk, tk):
-            mod.reset_launch_counts()
-        out = run()
-        return out, {**nk.LAUNCHES, **qk.LAUNCHES, **tk.LAUNCHES}
-
-    def expect_none(label: str, got: dict, **want) -> None:
-        wanted = {k: want.get(k, 0) for k in got}
-        if got != wanted:
-            raise AssertionError(f"[heads] {label}: expected launches {wanted}, got {got}")
 
     # 1. the frozen torch-parity fixtures on the card
     for fixture in HEAD_FIXTURES:
@@ -1840,9 +1876,9 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
                     c = coords if bundle.coord_aware else None
                     sync(dev)
                     t1 = time.perf_counter()
-                    (logits, launches) = all_counts(lambda: batcher.predict_logits(bag, c))
+                    (logits, launches) = all_launch_counts(lambda: batcher.predict_logits(bag, c))
                     ms = (time.perf_counter() - t1) * 1e3
-                    expect_none(f"{label} request", launches)
+                    expect_launches_exactly(f"[heads] {label} request", launches)
                     if not (logits.shape == (1, 2) and np.isfinite(logits).all()):
                         raise AssertionError(f"{label} at {n} tiles: {logits}")
                     held = ("no card route of its own: its plain route is the same code"
@@ -1889,9 +1925,10 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
             data = None if synthetic else cohorts[int(raw.Model.in_features)]
             path = heads_config(tmp, Path(config).stem, config, data)
             t0 = time.perf_counter()
-            summary, launches = all_counts(lambda: train(path, tmp / Path(config).stem / "log"))
+            summary, launches = all_launch_counts(
+                lambda: train(path, tmp / Path(config).stem / "log"))
             fit_s = time.perf_counter() - t0
-            expect_none(f"cli.train {config}", launches)
+            expect_launches_exactly(f"[heads] cli.train {config}", launches)
             rows = metric_rows(tmp / Path(config).stem / "log")
             t0 = time.perf_counter()
             cfg = finalize_config(read_yaml(path), config_path=path)
@@ -1999,15 +2036,15 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
         file_coords = np.asarray([parse_coords(p.name) for p in paths], np.float32)
         want_probs, want_scores = slide_bundle.predict_slide_with_attention(tiles, file_coords)
         t0 = time.perf_counter()
-        (got,), launches = all_counts(lambda: quiet(infer.main, [
+        (got,), launches = all_launch_counts(lambda: quiet(infer.main, [
             "--tiles_root", str(tmp / "tiles"), "--backbone_ckpt", str(tmp / "backbone.pth"),
             "--head_ckpt", str(tmp / "RoFormerMIL.pth"), "--model", "RoFormerMIL",
             "--quantize", "int8", "--chunk", str(CHUNK), "--tile_size", str(TILE),
             "--out_dir", str(tmp / "out"), "--device", str(dev)], tag="heads"))
         infer_s = time.perf_counter() - t0
         chunks = -(-DISK_TILES // CHUNK)
-        expect_none("cli.infer --model RoFormerMIL", launches, qstage_run=4 * chunks,
-                    qentry_run=3 * chunks)
+        expect_launches_exactly("[heads] cli.infer --model RoFormerMIL", launches,
+                                qstage_run=4 * chunks, qentry_run=3 * chunks)
         err = float(np.abs(np.asarray(got["probs"]) - want_probs).max())
         grid = slide_bundle.predict_slide(tiles)
         log(f"[heads] cli.infer --model RoFormerMIL, one slide of {DISK_TILES} JPEG tiles named "
@@ -2019,6 +2056,202 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
             raise AssertionError(f"cli.infer RoFormerMIL disagrees: {err}")
     part("cli.infer")
     log(f"[heads] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+        f"{name} {s:.1f} s" for name, s in parts.items()))
+
+
+def phase_zoo(rng, results: dict, dev) -> None:
+    """The rest of the bag-head zoo and the spatial heads, on the card: the
+    five frozen torch-parity fixtures; feature bags of 300, 12,000 and
+    40,960 tiles through ServingBundle + MicroBatcher of CLAM_SB-1024,
+    CLAM_MB-1024, DTFD-512, MDMIL-1024 and DSMIL-2048 (MDMIL's TransLayers
+    through K1/K2, 2 launches each a request, held to its plain route up to
+    12,000 tiles); CTMIL-2048 (K1/K2) and SpatialResNetMIL-768 eval forwards
+    on 50 x 50 volumes at their configs' train batch (128, 8), CTMIL held to
+    its plain route; ``cli.train`` of DTFDMIL_resnet50_tcmr_viral.yaml,
+    CTMIL_feat_norm_rest.yaml and Resnet50_feat_norm_rest.yaml as written
+    but for paths and 2 epochs, with the optimizer step at each config's
+    batch. The launch counts of every route are checked."""
+    from itertools import chain, islice
+
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.models import create_model, head_logits
+    from transmil_deepgraft_tpu_torch.serving import (
+        MicroBatcher, ServingBundle, export_serving_bundle)
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+    from transmil_deepgraft_tpu_torch.utils.jax_params import (
+        head_knobs_from_params, head_state_dict_from_jax, unflatten)
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - sum(parts.values()) - t_phase
+
+    # 1. the frozen torch-parity fixtures on the card
+    for fixture in ZOO_FIXTURES:
+        name = {"clam": fixture.upper(), "dtfd": "DTFD", "mdmil": "MDMIL",
+                "ctmil": "CTMIL"}[fixture.split("_")[0]]
+        with np.load(ROOT / "tests" / "fixtures" / f"parity_{fixture}.npz") as z:
+            params = unflatten({k[6:]: z[k] for k in z.files if k.startswith("param:")})
+            stats = unflatten({k[5:]: z[k] for k in z.files if k.startswith("stat:")}) or None
+            bag, want = z["bag"], z["out:logits"]
+        model = create_model(name, want.shape[-1], bag.shape[-1], device=dev,
+                             **head_knobs_from_params(name, params))
+        model.load_state_dict(head_state_dict_from_jax(name, params, bag.shape[-1], stats))
+        with torch.inference_mode():
+            got = head_logits(model.eval(), torch.from_numpy(bag).to(dev)).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        log(f"[zoo] fixture parity_{fixture} ({name}, input {bag.shape}): max|dlogit| "
+            f"{err:.3e} vs the recorded torch reference (tol {TOL})")
+        if not err <= TOL:
+            raise AssertionError(f"fixture {fixture} disagrees: {err}")
+    part("fixtures")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 2. feature bags through ServingBundle + MicroBatcher, drawn once a width
+        bags: dict = {}
+        for i, (label, (name, in_f)) in enumerate(ZOO_SERVED.items()):
+            t0 = time.perf_counter()
+            params = random_head_params(name, in_f, 512, {}, seed=200 + i)
+            path = tmp / f"zoo{i}.tdx"
+            export_serving_bundle(params, path, model_name=name, in_features=in_f, n_classes=2,
+                                  buckets=SMOKE_BUCKETS)
+            bundle = ServingBundle.load(path, device=dev)
+            batcher = MicroBatcher(bundle)
+            for n in HEAD_TILES:
+                if (n, in_f) not in bags:
+                    bags[n, in_f] = rng.standard_normal((n, in_f), dtype=np.float32)
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            per_forward = 2 if label == ZOO_HELD else 0
+            try:
+                batcher.predict_logits(bags[HEAD_TILES[0], in_f])  # warm-up
+                for n in HEAD_TILES:
+                    bag = bags[n, in_f]
+                    sync(dev)
+                    t1 = time.perf_counter()
+                    logits, launches = all_launch_counts(lambda: batcher.predict_logits(bag))
+                    ms = (time.perf_counter() - t1) * 1e3
+                    expect_launches_exactly(f"[zoo] {label} request", launches,
+                                            translayer_k1=per_forward,
+                                            translayer_k2=per_forward)
+                    if not (logits.shape == (1, 2) and np.isfinite(logits).all()):
+                        raise AssertionError(f"{label} at {n} tiles: {logits}")
+                    held = "no card route of its own"
+                    if label == ZOO_HELD and n <= HEAD_HELD_TILES:
+                        bundle.model.fused_inference = False
+                        sync(dev)
+                        t1 = time.perf_counter()
+                        plain, plain_launches = all_launch_counts(
+                            lambda: bundle.predict_logits(bag))
+                        plain_ms = (time.perf_counter() - t1) * 1e3
+                        bundle.model.fused_inference = True
+                        expect_launches_exactly(f"[zoo] {label} plain route", plain_launches)
+                        err = float(np.abs(plain - logits).max())
+                        held = (f"K1/K2 {launches['translayer_k1']}/"
+                                f"{launches['translayer_k2']} launches; plain route "
+                                f"{plain_ms:.2f} ms, max|dlogit| {err:.3e} (tol {SPLIT_TOL})")
+                        if not err <= SPLIT_TOL:
+                            raise AssertionError(f"{label} at {n} tiles disagrees: {err}")
+                    elif per_forward:
+                        held = (f"K1/K2 {launches['translayer_k1']}/"
+                                f"{launches['translayer_k2']} launches")
+                    log(f"[zoo] {label}, {n} tiles: {ms:.2f} ms a request, logits "
+                        f"{logits.ravel().tolist()}; {held}")
+            finally:
+                batcher.close()
+            log(f"[zoo] {label}: params, export and load {setup_s:.2f} s (its bags drawn "
+                f"there), requests {time.perf_counter() - t0:.2f} s")
+            del bundle, batcher
+            torch.cuda.empty_cache()
+        del bags
+        part("feature bags")
+
+        # 3. the spatial heads on 50 x 50 volumes at their configs' train batch
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for label, (name, in_f, batch) in ZOO_VOLUMES.items():
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(300)
+                model = create_model(name, 2, in_f, device=dev).eval()
+            x = torch.randn(batch, 50, 50, in_f, device=dev, generator=gen)
+            with torch.inference_mode():
+                outs: list = []
+                ms = cuda_ms(lambda: outs.append(model(x)), reps=3, warmup=1)
+                got, launches = all_launch_counts(lambda: model(x))
+                per_forward = 2 if name == "CTMIL" else 0
+                expect_launches_exactly(f"[zoo] {label} forward", launches,
+                                        translayer_k1=per_forward, translayer_k2=per_forward)
+                held = "no card route of its own"
+                if name == "CTMIL":
+                    model.fused_inference = False
+                    plain_ms = cuda_ms(lambda: outs.append(model(x)), reps=2, warmup=0)
+                    err = float((outs[-1] - got).abs().max())
+                    held = (f"K1/K2 2/2 launches; plain route {plain_ms:.2f} ms, max|dlogit| "
+                            f"{err:.3e} (tol {SPLIT_TOL})")
+                    if not err <= SPLIT_TOL:
+                        raise AssertionError(f"{label}: the card route disagrees: {err}")
+            if not (got.shape == (batch, 2) and torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: {got}")
+            log(f"[zoo] {label} eval forward, batch {batch} x 50 x 50 x {in_f}: {ms:.2f} ms; "
+                f"{held}")
+            del model, x, outs, got
+            torch.cuda.empty_cache()
+        part("volumes")
+
+        # 4. cli.train of the repository's configs, 2 epochs each
+        def train(config: Path, log_dir: Path):
+            return quiet(cli.main, ["--config", str(config), "--log_dir", str(log_dir),
+                                    "--device", dev.type], tag="zoo")
+
+        cohorts = {dim: write_cohort(tmp / f"cohort{dim}", rng, dim, splits, tag="zoo",
+                                     tiles=CLI_TILES if dim == 512 else ZOO_SPATIAL_TILES)
+                   for dim, splits in ZOO_SPLITS.items()}
+        part("cohorts")
+        for config in ZOO_CONFIGS:
+            raw = read_yaml(ROOT / "transmil_deepgraft_tpu" / "configs" / config)
+            dim = int(raw.Model.in_features)
+            path = heads_config(tmp, Path(config).stem, config, cohorts[dim])
+            t0 = time.perf_counter()
+            summary, launches = all_launch_counts(
+                lambda: train(path, tmp / Path(config).stem / "log"))
+            fit_s = time.perf_counter() - t0
+            # CTMIL's eval forwards (val each epoch, then test; batch 1) run K1/K2
+            evals = CLI_EPOCHS * ZOO_SPLITS[dim]["val"] + ZOO_SPLITS[dim]["test"]
+            per_eval = 2 if raw.Model.name == "CTMIL" else 0
+            expect_launches_exactly(f"[zoo] cli.train {config}", launches,
+                                    translayer_k1=per_eval * evals,
+                                    translayer_k2=per_eval * evals)
+            rows = metric_rows(tmp / Path(config).stem / "log")
+            t0 = time.perf_counter()
+            cfg = finalize_config(read_yaml(path), config_path=path)
+            trainer = cli.build(cfg, str(tmp / Path(config).stem / "probe"), dev.type)
+            if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+                raise AssertionError(f"{config}: the head is not float32")
+            epochs = chain.from_iterable(trainer.dm.train_batches(e) for e in range(1000))
+            batches = list(islice(epochs, trainer.tx.grad_accum_steps))
+            step_ms, step_min = head_step_ms(trainer, batches)
+            shape = "x".join(map(str, batches[0].bags.shape))
+            log(f"[zoo] cli.train {config} ({raw.Model.name}, precision "
+                f"{raw.General.precision or 32} -> float32, batch {shape}, grad_acc "
+                f"{trainer.tx.grad_accum_steps}, {type(trainer.tx).__name__}): {CLI_EPOCHS} "
+                f"epochs + test {fit_s:.2f} s; " + "; ".join(
+                    f"epoch {r['step']} loss {r['loss']:.6f} val_loss {r['val_loss']:.6f} "
+                    f"val_auc {r['val_auc']:.4f}" for r in rows)
+                + f"; test_auc {summary['test_auc']:.4f}; K1/K2 launches "
+                f"{launches['translayer_k1']}/{launches['translayer_k2']}; optimizer step "
+                f"median {step_ms:.2f} ms (min {step_min:.2f}) of {HEAD_STEPS} (timing them "
+                f"{time.perf_counter() - t0:.2f} s)")
+            if len(rows) != CLI_EPOCHS or not np.isfinite(summary["test_loss"]):
+                raise AssertionError(f"{config}: {rows}, {summary}")
+            del trainer, batches
+            torch.cuda.empty_cache()
+        part("cli.train")
+    log(f"[zoo] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
         f"{name} {s:.1f} s" for name, s in parts.items()))
 
 
@@ -2063,7 +2296,10 @@ def main() -> int:
     t_new = time.perf_counter()
     phase_cli_train(rng, results, dev)
     log(f"[env] cli_train phase {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
     phase_heads(rng, results, dev, variables)
+    log(f"[env] heads phase {time.perf_counter() - t_new:.1f} s")
+    phase_zoo(rng, results, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

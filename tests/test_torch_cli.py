@@ -265,8 +265,8 @@ def test_infer_matches_the_jax_cli(checkpoints, capsys):
 
 def test_infer_refuses_what_the_port_lacks(checkpoints):
     args = _infer_args(checkpoints, checkpoints / "x")
-    with pytest.raises(SystemExit, match="item 7"):
-        infer.main(args + ["--model", "DTFD", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 8"):
+        infer.main(args + ["--model", "vit", "--device", "cpu"])
     with pytest.raises(SystemExit, match="item 10"):
         infer.main(args + ["--n_chips", "2", "--device", "cpu"])
 

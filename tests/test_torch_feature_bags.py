@@ -150,7 +150,9 @@ def test_bagstore_reads_across_packages(tmp_path):
         tbagstore.BagStore(tmp_path / "port.bags").read_bag(3)
 
 
-@pytest.mark.parametrize("over", [{"variant": "spatial"}, {"variant": "images"},
+# the spatial variant is ported (tests/test_torch_zoo.py); from Camelyon it is not
+@pytest.mark.parametrize("over", [{"variant": "spatial", "dataset_name": "camelyon"},
+                                  {"variant": "images"},
                                   {"variant": "tiles"}, {"variant": "image_bags"},
                                   {"dataset_name": "camelyon"}], ids=str)
 def test_datamodule_refuses_what_is_not_ported(cohort, over):

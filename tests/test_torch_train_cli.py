@@ -255,7 +255,7 @@ def test_fine_tune_stage_continues_from_last_ckpt(run, tmp_path):
     assert np.isfinite(summary["test_loss"])
 
 
-@pytest.mark.parametrize("model, match", [("CLAM_SB", "ROADMAP A7"), ("DTFD", "ROADMAP A7"),
+@pytest.mark.parametrize("model, match", [("vit", "ROADMAP A8"), ("resnet18", "ROADMAP A8"),
                                           ("inception", "ROADMAP A8")])
 def test_cli_refuses_unported_heads(run, tmp_path, model, match):
     config = _write_config(tmp_path, "TransMIL_x_norm_rest.yaml", Data=run["data"],

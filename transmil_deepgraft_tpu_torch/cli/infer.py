@@ -31,7 +31,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--head_ckpt", required=True,
                    help="head weights: flax msgpack or torch .pth")
     p.add_argument("--model", default="TransMIL",
-                   help="head name: TransMIL/AttMIL/Chowder/RoFormerMIL/AttTrans")
+                   help="head name: a ported bag head with per-tile attention (TransMIL, "
+                        "AttMIL, Chowder, RoFormerMIL, AttTrans, CLAM_SB, CLAM_MB, MDMIL, DSMIL, "
+                        "...)")
     p.add_argument("--n_classes", type=int, default=2,
                    help="the head's classes (the port reads them from the weights)")
     p.add_argument("--in_features", type=int, default=2048)
@@ -54,7 +56,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
-    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED, SPATIAL_HEADS
     from transmil_deepgraft_tpu_torch.serving import head_from_params
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
@@ -64,6 +66,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
         item = NOT_PORTED.get(args.model, "A7")
         raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP queue A item "
                          f"{item[1:]}); the port serves {sorted(MODEL_REGISTRY)}")
+    if args.model in SPATIAL_HEADS:
+        raise SystemExit(f"--model {args.model} takes (H, W, D) grid volumes, not a slide's "
+                         "bag of tiles (ROADMAP A7, done but for serving the spatial heads)")
+    if not MODEL_REGISTRY[args.model].gives_attention:
+        raise SystemExit(f"--model {args.model} gives no per-tile attention for the top-k "
+                         "tiles (JAX's cli.infer cannot run it either); serve it from a slide "
+                         "bundle: cli.export_model --backbone_ckpt, then cli.serve")
     if args.n_chips > 1:
         raise SystemExit("--n_chips > 1: the multi-device embed comes with ROADMAP queue A "
                          "item 10")

@@ -14,13 +14,15 @@ Trainer, and run the stage:
 - ``test`` / ``val``: every ``checkpoints/*.ckpt`` of the log dir (the
   port's, or the JAX Trainer's msgpack ones), evaluated with result CSVs.
 
-Runs on the card unless ``--device cpu``. The heads are TransMIL,
-TransformerMIL, AttMIL, Chowder, RoFormerMIL (with the bags' tile
-coordinates) and AttTrans/MonaiMILModel; ``General.precision`` 16 or
-``16-mixed`` trains a bfloat16-compute TransMIL, and the other heads in
-float32, as the JAX package's ``create_model`` does. DTFD, CLAM, CTMIL, MDMIL,
-DSMIL and the spatial ResNet50 head (ROADMAP A7) and the classic per-tile
-models (A8) are not ported yet and raise.
+Runs on the card unless ``--device cpu``. Every bag head trains but MDMIL
+(JAX's Trainer fails on it, ROADMAP C9): TransMIL, TransformerMIL, AttMIL,
+Chowder, RoFormerMIL (with the bags' tile coordinates), AttTrans/
+MonaiMILModel, CLAM_SB/MB (on the bag loss, as JAX's), DSMIL, DTFD (batch 1,
+``create_dtfd_optimizer``), and CTMIL and ``resnet50`` on the spatial
+variant's feature volumes. ``General.precision`` 16 or ``16-mixed`` trains a
+bfloat16-compute TransMIL, and the other heads in float32, as the JAX
+package's ``create_model`` does. The classic per-tile models (ROADMAP A8)
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -80,18 +82,17 @@ def _model_extras(cfg, model_name: str) -> dict:
 def build(cfg, log_dir: str | None = None, device: str | None = None):
     from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
     from transmil_deepgraft_tpu_torch.device import resolve_device
-    from transmil_deepgraft_tpu_torch.models import NOT_PORTED, create_model
+    from transmil_deepgraft_tpu_torch.models import NOT_PORTED, SPATIAL_HEADS, create_model
     from transmil_deepgraft_tpu_torch.train.losses import create_loss
-    from transmil_deepgraft_tpu_torch.train.optimizers import create_optimizer_from_config
+    from transmil_deepgraft_tpu_torch.train.optimizers import (
+        create_dtfd_optimizer, create_optimizer_from_config)
     from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     n_classes = int(cfg.Model.n_classes)
     in_features = int(cfg.Model.in_features or 2048)
     out_features = int(cfg.Model.out_features or 512)
     model_name = str(cfg.Model.name)
-    if model_name in ("DTFD", "DTFDMIL"):
-        raise NotImplementedError("DTFD (a batch-1 head with two optimizers) is not ported "
-                                  "yet (ROADMAP A7)")
+    is_dtfd = model_name in ("DTFD", "DTFDMIL")
     if model_name in NOT_PORTED:
         raise NotImplementedError(f"Model.name {model_name!r} is not ported yet (ROADMAP "
                                   f"{NOT_PORTED[model_name]})")
@@ -118,10 +119,15 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         dataset_name=str(cfg.Data.dataset_name or "custom"),
         fold=int(cfg.Data.fold or 0),
         tile_size=int(cfg.Data.tile_size or 224),
-        # JAX picks the variant by head (spatial for CTMIL/resnet50, tiles for
-        # the classic CNNs); the ported heads read feature bags
-        variant=str(cfg.Data.variant or "features"),
+        # the variant by head (JAX cli/train.py:112-118): spatial feature
+        # volumes for CTMIL/resnet50, feature bags for the other ported heads
+        variant=str(cfg.Data.variant
+                    or ("spatial" if model_name in SPATIAL_HEADS else "features")),
     )
+    if is_dtfd and dm.batch_size != 1:
+        # DTFD takes one slide at a time (ref model_interface_dtfd.py:183)
+        print(f"[cli] DTFD requires batch_size=1 (configured {dm.batch_size}); clamping")
+        dm.batch_size = 1
     # the initial weights come from the config's seed (JAX: key(seed)), drawn
     # on the CPU, without touching the caller's random state
     with torch.random.fork_rng(devices=[]):
@@ -132,7 +138,15 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
                              **_model_extras(cfg, model_name))
     loss_fn = create_loss(str(cfg.Loss.base_loss or "CrossEntropyLoss"))
     grad_acc = int(cfg.General.grad_acc or 1)
-    tx = create_optimizer_from_config(cfg.Optimizer, grad_accum_steps=grad_acc)
+    if is_dtfd:
+        # the two tier-wise Adams (JAX cli/train.py:157-163): its epoch is
+        # n_train synthetic bags or 100 steps, whatever the cohort, and
+        # General.grad_acc is not applied (ROADMAP C10)
+        steps = max(1, (int(cfg.Data.synthetic.n_train or 32) if cfg.Data.synthetic else 100)
+                    // int(cfg.Data.train_dataloader.batch_size or 1))
+        tx = create_dtfd_optimizer(steps_per_epoch=steps)
+    else:
+        tx = create_optimizer_from_config(cfg.Optimizer, grad_accum_steps=grad_acc)
     tcfg = TrainerConfig(
         epochs=int(cfg.General.epochs or 200),
         patience=int(cfg.General.patience or 50),

@@ -12,9 +12,12 @@ Sources: synthetic bags (``synthetic={...}``) or per-slide feature bags from
 ``data_dir`` named in the label JSON ``label_path``
 (:class:`~transmil_deepgraft_tpu_torch.data.feature_bags.FeatureBagDataset`),
 whose train batches may come from the native bag store
-(:meth:`MILDataModule.enable_bagstore`). The other dataset variants
-(spatial, images, tiles, image_bags) and the Camelyon source are not ported
-yet (ROADMAP A6/A7) and raise.
+(:meth:`MILDataModule.enable_bagstore`); ``variant='spatial'`` (the CTMIL and
+``resnet50`` heads) gives (B, 50, 50, D) feature volumes
+(:class:`~transmil_deepgraft_tpu_torch.data.local_features.LocalFeatureBagDataset`),
+without mixup, as JAX's. The other dataset variants (images, tiles,
+image_bags) and the Camelyon source are not ported yet (ROADMAP A6) and
+raise.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ __all__ = ["Batch", "MILDataModule", "collate", "normalize_pad_coords"]
 
 @dataclass
 class Batch:
-    bags: np.ndarray  # (B, N, D) float32
+    bags: np.ndarray  # (B, N, D) float32; the spatial variant's (B, w, w, D) volumes
     labels: np.ndarray  # (B,) int32
     lengths: np.ndarray  # (B,) int32 real bag lengths before padding
     names: list[str]
@@ -107,10 +110,10 @@ class MILDataModule:
                  tile_size: int = 224, resample_val: bool = False) -> None:
         if synthetic is None and dataset_name == "camelyon":
             raise NotImplementedError("the Camelyon source is not ported yet (ROADMAP A6)")
-        if synthetic is None and variant != "features":
+        if synthetic is None and variant not in ("features", "spatial"):
             raise NotImplementedError(
-                f"dataset variant {variant!r} is not ported yet (ROADMAP A6/A7); "
-                "the port has 'features'")
+                f"dataset variant {variant!r} is not ported yet (ROADMAP A6); "
+                "the port has 'features' and 'spatial'")
         self.data_dir = data_dir
         self.label_path = label_path
         self.n_classes = n_classes
@@ -164,6 +167,14 @@ class MILDataModule:
                 return _TrainViewSynthetic(ds, self.max_bag_size)
             return _EvalViewSynthetic(ds)
         actual_mode = "fine_tune" if (mode == "train" and self.fine_tune) else mode
+        if self.variant == "spatial":  # CTMIL / resnet50 (ref data_interface.py:166-177)
+            from transmil_deepgraft_tpu_torch.data.local_features import LocalFeatureBagDataset
+
+            return LocalFeatureBagDataset(
+                self.data_dir, self.label_path, actual_mode, self.n_classes,
+                slide_patient_path=self.slide_patient_path,
+                feature_extractor=self.feature_extractor,
+            )
         return FeatureBagDataset(
             self.data_dir, self.label_path, actual_mode, self.n_classes,
             slide_patient_path=self.slide_patient_path, max_bag_size=self.max_bag_size,

@@ -29,6 +29,7 @@ from torch import nn
 
 from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD, _load_tile
 from transmil_deepgraft_tpu_torch.device import resolve_device
+from transmil_deepgraft_tpu_torch.models import head_logits
 
 
 def decode_tile_paths(paths, size: int = 224, scaled_dct: bool = True) -> np.ndarray:
@@ -202,16 +203,19 @@ class SlideInferencePipeline:
         return self._attention_from_feats(self.embed_device(tiles), len(tiles), coords)
 
     def _head(self, feats: torch.Tensor, coords, **kw):
-        """The head on one (N, D) bag; a coord-aware one also gets the
-        (1, N, 2) coords (None: its square-grid fallback)."""
-        if not self.coord_aware:
-            return self.head(feats[None], **kw)
-        if coords is not None:
-            coords = np.asarray(coords, np.float32)
-            if coords.shape != (feats.shape[0], 2):
-                raise ValueError(f"coords must be ({feats.shape[0]}, 2), got {coords.shape}")
-            coords = torch.from_numpy(coords[None]).to(self.device)
-        return self.head(feats[None], coords, **kw)
+        """The head's logits on one (N, D) bag (with ``return_attn=True``
+        its (logits, attention)); a coord-aware one also gets the (1, N, 2)
+        coords (None: its square-grid fallback)."""
+        args = (feats[None],)
+        if self.coord_aware:
+            if coords is not None:
+                coords = np.asarray(coords, np.float32)
+                if coords.shape != (feats.shape[0], 2):
+                    raise ValueError(f"coords must be ({feats.shape[0]}, 2), got "
+                                     f"{coords.shape}")
+                coords = torch.from_numpy(coords[None]).to(self.device)
+            args += (coords,)
+        return self.head(*args, **kw) if kw else head_logits(self.head, *args)
 
     def _probs(self, feats: torch.Tensor, coords=None) -> np.ndarray:
         with torch.inference_mode():

@@ -1,8 +1,9 @@
 """Model registry of the port (counterpart of ``models/__init__.py``).
 
-The bag-level heads the configs train (TransMIL, TransformerMIL, AttMIL,
-Chowder, RoFormerMIL, AttTrans/MonaiMILModel), the ResNet50 feature
-extractor and its int8 post-training-quantized form."""
+Every bag-level head of the JAX zoo (TransMIL, TransformerMIL, AttMIL,
+Chowder, RoFormerMIL, AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL)
+and the two heads over spatial feature volumes (CTMIL, ``resnet50``), the
+ResNet50 feature extractor and its int8 post-training-quantized form."""
 
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ import torch
 from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models.attmil import AttMIL
 from transmil_deepgraft_tpu_torch.models.chowder import Chowder
+from transmil_deepgraft_tpu_torch.models.clam import CLAM_MB, CLAM_SB
+from transmil_deepgraft_tpu_torch.models.ctmil import CTMIL
+from transmil_deepgraft_tpu_torch.models.dsmil import DSMIL
+from transmil_deepgraft_tpu_torch.models.dtfd import DTFDMIL
+from transmil_deepgraft_tpu_torch.models.mdmil import MDMIL
 from transmil_deepgraft_tpu_torch.models.monai_mil import MonaiMIL
 from transmil_deepgraft_tpu_torch.models.resnet import ResNet, resnet50, resnet50_baseline
 from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
@@ -22,6 +28,7 @@ from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
     build_qresnet50,
 )
 from transmil_deepgraft_tpu_torch.models.roformer_mil import RoFormerMIL
+from transmil_deepgraft_tpu_torch.models.spatial_resnet import SpatialResNetMIL
 from transmil_deepgraft_tpu_torch.models.transformer_mil import TransformerMIL
 from transmil_deepgraft_tpu_torch.models.transmil import TransMIL, TransMILAttention
 
@@ -33,12 +40,20 @@ MODEL_REGISTRY: dict[str, type[torch.nn.Module]] = {
     "MonaiMILModel": MonaiMIL,
     "AttTrans": MonaiMIL,
     "RoFormerMIL": RoFormerMIL,
+    "CLAM_SB": CLAM_SB,
+    "CLAM_MB": CLAM_MB,
+    "DTFD": DTFDMIL,
+    "DTFDMIL": DTFDMIL,
+    "MDMIL": MDMIL,
+    "DSMIL": DSMIL,
+    "CTMIL": CTMIL,
+    "resnet50": SpatialResNetMIL,
 }
-# the JAX package's other models, and the ROADMAP item that ports each: its
-# other heads (A7) and the classic per-tile models it trains on tiles (A8)
-NOT_PORTED = {"DTFD": "A7", "DTFDMIL": "A7", "CLAM_SB": "A7", "CLAM_MB": "A7", "CTMIL": "A7",
-              "MDMIL": "A7", "DSMIL": "A7", "resnet50": "A7", "inception": "A8",
-              "resnet18": "A8", "vit": "A8", "efficientnet": "A8"}
+# the heads over (B, H, W, D) spatial feature volumes, not bags of tiles
+SPATIAL_HEADS = ("CTMIL", "resnet50")
+# the JAX package's other models, and the ROADMAP item that ports each: the
+# classic per-tile models it trains on tiles (A8)
+NOT_PORTED = {"inception": "A8", "resnet18": "A8", "vit": "A8", "efficientnet": "A8"}
 
 
 def create_model(name: str, n_classes: int, in_features: int = 2048,
@@ -73,8 +88,19 @@ def create_model(name: str, n_classes: int, in_features: int = 2048,
     return MODEL_REGISTRY[name](**common, **kwargs).to(dev)
 
 
+def head_logits(model: torch.nn.Module, *args: Any) -> torch.Tensor:
+    """A head's logits on ``args`` (JAX ``serving._eval_forward``): DTFD's
+    slide prediction; MDMIL asked for no attention row (its default), so
+    its TransLayers run fused at inference; the others' forward as it is."""
+    if isinstance(model, MDMIL):
+        return model(*args, return_attn=False)
+    out = model(*args)
+    return out[1] if isinstance(model, DTFDMIL) else out
+
+
 __all__ = [
-    "AttMIL", "Chowder", "MODEL_REGISTRY", "MonaiMIL", "QResNet50", "ResNet", "RoFormerMIL",
-    "TransMIL", "TransMILAttention", "TransformerMIL", "apply_qresnet50", "build_qresnet50",
-    "create_model", "resnet50", "resnet50_baseline",
+    "AttMIL", "CLAM_MB", "CLAM_SB", "CTMIL", "Chowder", "DSMIL", "DTFDMIL", "MDMIL",
+    "MODEL_REGISTRY", "MonaiMIL", "QResNet50", "ResNet", "RoFormerMIL", "SPATIAL_HEADS",
+    "SpatialResNetMIL", "TransMIL", "TransMILAttention", "TransformerMIL", "apply_qresnet50",
+    "build_qresnet50", "create_model", "head_logits", "resnet50", "resnet50_baseline",
 ]

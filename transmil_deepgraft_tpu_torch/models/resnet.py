@@ -1,7 +1,9 @@
 """ResNet50 in feature mode (port of ``models/resnet.py``).
 
-The RetCCL ResNet50 (2048-d pooled features) and the CLAM baseline truncated
-after layer3 (1024-d). Eval-mode BatchNorm with running statistics. Inputs are
+The RetCCL ResNet50 (2048-d pooled features), the CLAM baseline truncated
+after layer3 (1024-d), and with ``in_channels`` the spatial ResNet50 MIL head's
+trunk (``models/spatial_resnet.py``). BatchNorm is :class:`BatchNorm2d`: the
+running statistics in eval mode, flax's train-mode rule otherwise. Inputs are
 NHWC, as in the JAX package; the convolutions run in NCHW (a channels-last
 view of the same memory). Module names follow the flax module names
 (``conv1``, ``bn1``, ``layer1_0.conv1``, ``layer2_0.downsample_conv``, ...),
@@ -27,8 +29,37 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax ``nn.BatchNorm``'s train-mode semantics,
+    written as flax computes them: the batch's mean and its variance
+    ``max(0, E[x^2] - E[x]^2)`` normalize, ``y = (x - mean) * (rsqrt(var +
+    eps) * scale) + bias``, and the running statistics move by ``ra =
+    momentum * ra + (1 - momentum) * batch``, the variance biased too
+    (torch's own rule keeps the unbiased one and calls ``1 - momentum`` its
+    momentum). ``momentum`` is flax's: 0.99 its default, 0.9 in the ResNets.
+    Eval mode uses the running statistics."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = BN_EPS) -> None:
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, momentum=0.9)
 
 
 class Bottleneck(nn.Module):
@@ -57,13 +88,14 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """NHWC ResNet in feature mode: (B, H, W, 3) -> (B, C) pooled features."""
+    """NHWC ResNet in feature mode: (B, H, W, in_channels) -> (B, C) pooled
+    features."""
 
     def __init__(self, block: type = Bottleneck, layers: Sequence[int] = (3, 4, 6, 3),
-                 truncate_after: int = 4) -> None:
+                 truncate_after: int = 4, in_channels: int = 3) -> None:
         super().__init__()
         self.truncate_after = truncate_after
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
         self.block_names: list[str] = []
         in_planes = 64

@@ -1,5 +1,6 @@
 """TransMIL: Nystrom-attention transformer MIL head (port of
-``models/transmil.py``).
+``models/transmil.py``); its body after the tokenizer,
+:class:`TransMILBody`, also runs MDMIL and CTMIL.
 
 Architecture (ref ``code/models/TransMIL.py:78-211``):
   fc1 MLP -> duplicate-pad bag to ceil(sqrt(N))^2 -> prepend cls token ->
@@ -53,7 +54,50 @@ class TransMILAttention(NamedTuple):
         return self.row[..., start:start + self.n_tokens]
 
 
-class TransMIL(nn.Module):
+class TransMILBody(nn.Module):
+    """TransMIL's pipeline after its tokenizer, shared by TransMIL, MDMIL and
+    CTMIL: duplicate-pad the (B, n, D) tokens to a square grid, prepend the
+    cls token, TransLayer 1, PPEG, TransLayer 2, LayerNorm, the classifier
+    on the cls row. A subclass makes ``pos_layer``, ``cls_token``,
+    ``layer1``, ``layer2``, ``norm`` and its classifier, and sets
+    ``out_features`` and ``fused_inference``."""
+
+    def _run_layer(self, layer: TransLayer, h: torch.Tensor, fused: bool,
+                   row_index: Optional[int]):
+        if fused:
+            attn = layer.attn
+            y = fused_translayer(
+                h, layer.norm.weight, layer.norm.bias, attn.to_qkv.weight,
+                attn.to_out[0].weight, attn.to_out[0].bias, attn.res_conv.weight,
+                heads=attn.heads, dim_head=attn.dim_head,
+                num_landmarks=attn.num_landmarks, pinv_iterations=attn.pinv_iterations,
+            )
+            return y, None
+        out, attn_row, _ = layer(h, return_row_index=row_index)
+        return out, attn_row
+
+    def _body(self, h: torch.Tensor, classifier: nn.Module, row_offset: Optional[int]):
+        """Tokens -> (logits, the layer-2 attention row, its landmark
+        front-pad, the token count). ``row_offset`` None runs both layers
+        fused at inference (the K1/K2 kernels on the card); otherwise the
+        standard layers return the attention of query row ``pad +
+        row_offset``."""
+        n_tokens = h.shape[1]
+        h, grid_h, grid_w = duplicate_pad_square(h)
+        h = torch.cat([self.cls_token.expand(h.shape[0], -1, -1), h.float()], dim=1)
+
+        fused = self.fused_inference and not self.training and row_offset is None
+        h, _ = self._run_layer(self.layer1, h, fused, None)
+        h = self.pos_layer(h, grid_h, grid_w)
+
+        # the landmark front-pad of the (grid_h*grid_w + 1)-token sequence
+        pad = landmark_pad(h.shape[1], self.out_features // 2)
+        h, attn_row = self._run_layer(self.layer2, h, fused,
+                                      None if row_offset is None else pad + row_offset)
+        return classifier(self.norm(h)[:, 0]), attn_row, pad, n_tokens
+
+
+class TransMIL(TransMILBody):
     flax_classifier = "fc"  # the flax name of the (width, n_classes) classifier
     gives_attention = True  # return_attn gives the TransMILAttention row
 
@@ -73,40 +117,14 @@ class TransMIL(nn.Module):
         self.norm = nn.LayerNorm(out_features, eps=1e-5)
         self._fc = nn.Linear(out_features, n_classes)
 
-    def _run_layer(self, layer: TransLayer, h: torch.Tensor, fused: bool,
-                   row_index: Optional[int]):
-        if fused:
-            attn = layer.attn
-            y = fused_translayer(
-                h, layer.norm.weight, layer.norm.bias, attn.to_qkv.weight,
-                attn.to_out[0].weight, attn.to_out[0].bias, attn.res_conv.weight,
-                heads=attn.heads, dim_head=attn.dim_head,
-                num_landmarks=attn.num_landmarks, pinv_iterations=attn.pinv_iterations,
-            )
-            return y, None
-        out, attn_row, _ = layer(h, return_row_index=row_index)
-        return out, attn_row
-
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         if x.dim() == 2:
             x = x[None]
-        h = self._fc1(x.to(self.dtype))
-        n_tokens = h.shape[1]
-        h, grid_h, grid_w = duplicate_pad_square(h)
-        h = torch.cat([self.cls_token.expand(h.shape[0], -1, -1), h.float()], dim=1)
-
-        fused = self.fused_inference and not self.training and not return_attn
-        h, _ = self._run_layer(self.layer1, h, fused, None)
-        h = self.pos_layer(h, grid_h, grid_w)
-
-        # the landmark front-pad of the (grid_h*grid_w + 1)-token sequence
-        pad = landmark_pad(h.shape[1], self.out_features // 2)
-        row_index = None
+        row_offset = None
         if return_attn:
-            row_index = pad + (1 if self.attn_query == "ref" else 0)
-        h, attn_row = self._run_layer(self.layer2, h, fused, row_index)
-
-        logits = self._fc(self.norm(h)[:, 0])
+            row_offset = 1 if self.attn_query == "ref" else 0
+        logits, attn_row, pad, n_tokens = self._body(self._fc1(x.to(self.dtype)), self._fc,
+                                                     row_offset)
         if return_attn:
             return logits, TransMILAttention(row=attn_row, pad=pad, n_tokens=n_tokens)
         return logits

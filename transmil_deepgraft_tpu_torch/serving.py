@@ -13,11 +13,14 @@ programs.
     bundle = ServingBundle.load("head.tdx")          # on the card
     probs = bundle.predict(features)                 # (n, D) -> (1, C)
 
-Every ported head serves (TransMIL, TransformerMIL, AttMIL, Chowder,
-RoFormerMIL, AttTrans/MonaiMILModel): the meta names the head, whether it
-is coord-aware, and its knobs (``knobs``: RoFormerMIL's ``num_landmarks``,
-MONAI's ``mil_mode``, ...); the widths and depths come from the weights, and
-a JAX bundle (whose meta has no knobs) gets the heads' defaults for the
+Every ported bag head serves (TransMIL, TransformerMIL, AttMIL, Chowder,
+RoFormerMIL, AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL; the
+logits of DTFD's slide prediction, of MDMIL without its attention row, as
+JAX's ``_eval_forward`` takes them; CTMIL and ``resnet50`` take grid
+volumes, which a bundle does not carry, and are refused): the meta names
+the head, whether it is coord-aware, and its knobs (``knobs``:
+RoFormerMIL's ``num_landmarks``, MONAI's ``mil_mode``, ...); the widths and
+depths come from the weights, and a JAX bundle (whose meta has no knobs) gets the heads' defaults for the
 knobs its weights do not show (a MONAI 'mean' or 'max' head, whose weights
 are the same, needs its ``mil_mode``). A coord-aware bundle takes
 ``coords``, the tiles' (n, 2) grid positions, normalized and zero-padded
@@ -52,7 +55,8 @@ import torch
 from transmil_deepgraft_tpu_torch.data.coords import grid_coords, normalize_pad_coords
 from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD
 from transmil_deepgraft_tpu_torch.device import resolve_device
-from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, create_model
+from transmil_deepgraft_tpu_torch.models import (
+    MODEL_REGISTRY, SPATIAL_HEADS, create_model, head_logits)
 from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
     EXPANSION, PLANES, QBlock, QResNet50, _block_plan)
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
@@ -65,19 +69,35 @@ DEFAULT_SERVING_BUCKETS: tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192, 16
 # Slide bundles serve whole slides, so their head buckets reach the tile
 # counts of large slides (a 40,960-tile slide pads to 65,536).
 SLIDE_SERVING_BUCKETS: tuple[int, ...] = DEFAULT_SERVING_BUCKETS + (32768, 65536)
+
+
+def classifier_shape(model_name: str, params: Mapping[str, Any]) -> tuple[int, int]:
+    """(width, n_classes) of a head's flax-layout ``params``, read from its
+    ``flax_classifier``: one (width, n_classes) kernel, or one (width, 1)
+    kernel a class (``classifier_{}``, CLAM_MB's)."""
+    classifier = MODEL_REGISTRY[model_name].flax_classifier
+    first = classifier.format(0)
+    if first not in params:
+        raise ValueError(f"the params hold no {model_name} head (no {first!r}; "
+                         f"top-level keys {sorted(params)[:8]})")
+    width, n_classes = np.shape(params[first]["kernel"])
+    if "{}" in classifier:
+        n_classes = sum(1 for k in params if k.startswith(classifier.format("")))
+    return int(width), int(n_classes)
+
+
 def head_from_params(model_name: str, params: Mapping[str, Any], in_features: int,
                      knobs: Mapping[str, Any] | None = None,
                      device: str | torch.device | None = None) -> torch.nn.Module:
-    """A ported head with its flax-layout ``params``, in eval mode on
+    """A ported bag head with its flax-layout ``params``, in eval mode on
     ``device`` (None = CUDA): n_classes and the widths and depths from the
     weights, the other knobs from ``knobs`` or the head's defaults."""
-    if model_name not in MODEL_REGISTRY:
-        raise ValueError(f"the port serves {sorted(MODEL_REGISTRY)}, not {model_name!r}")
-    classifier = MODEL_REGISTRY[model_name].flax_classifier
-    if classifier not in params:
-        raise ValueError(f"the params hold no {model_name} head (no {classifier!r}; "
-                         f"top-level keys {sorted(params)[:8]})")
-    width, n_classes = np.shape(params[classifier]["kernel"])
+    if model_name not in MODEL_REGISTRY or model_name in SPATIAL_HEADS:
+        served = sorted(set(MODEL_REGISTRY) - set(SPATIAL_HEADS))
+        raise ValueError(f"the port serves the bag heads {served}, not {model_name!r}"
+                         + (" (it takes grid volumes, which a bundle does not carry; "
+                            "ROADMAP A7)" if model_name in SPATIAL_HEADS else ""))
+    width, n_classes = classifier_shape(model_name, params)
     model = create_model(model_name, int(n_classes), in_features, int(width), device=device,
                          **head_knobs_from_params(model_name, params, knobs))
     model.load_state_dict(head_state_dict_from_jax(model_name, params, in_features))
@@ -89,7 +109,7 @@ def _head_meta(model_name: str, params: Mapping[str, Any], in_features: int, n_c
     """The head's part of a bundle's meta, checked by building the head from
     ``params`` on the CPU."""
     model = head_from_params(model_name, params, in_features, knobs, device="cpu")
-    classes = int(np.shape(params[model.flax_classifier]["kernel"])[1])
+    classes = classifier_shape(model_name, params)[1]
     if classes != n_classes:
         raise ValueError(f"n_classes={n_classes} but the {model_name} weights give {classes}")
     return {"model_name": model_name, "in_features": int(in_features),
@@ -390,8 +410,7 @@ class ServingBundle:
         else:  # the port writes a head's params alone, JAX its variables
             params, leaves = (tree if "params.npz" in names else tree["params"]), None
         if meta["model_name"] in MODEL_REGISTRY:
-            classifier = MODEL_REGISTRY[meta["model_name"]].flax_classifier
-            meta.setdefault("n_classes", int(np.shape(params[classifier]["kernel"])[1]))
+            meta.setdefault("n_classes", classifier_shape(meta["model_name"], params)[1])
         return cls(meta, params, device, leaves)
 
     def _pad_target(self, n: int) -> int:
@@ -467,7 +486,10 @@ class ServingBundle:
         return torch.from_numpy(c).to(self.device)
 
     def _forward(self, x: torch.Tensor, c: torch.Tensor | None, **kw):
-        return self.model(x, **kw) if c is None else self.model(x, c, **kw)
+        """The head's logits, or with ``return_attn=True`` its (logits,
+        attention)."""
+        args = (x,) if c is None else (x, c)
+        return self.model(*args, **kw) if kw else head_logits(self.model, *args)
 
     def _logits(self, bags: Sequence[np.ndarray], target: int, batch: int,
                 coords=None) -> np.ndarray:

@@ -23,6 +23,10 @@ float32), ``adam`` (coupled L2), ``adamw`` (decoupled), ``sgd`` (alias
 wraps any of them; any other name raises ``KeyError`` (the other rules are
 ROADMAP A5). :func:`create_optimizer_from_config` reads a config's
 ``Optimizer`` section.
+
+:func:`create_dtfd_optimizer` is DTFD's pair of Adams, one a tier
+(:class:`TwoTierOptimizer`), as JAX's ``optax.multi_transform``: coupled L2
+on every parameter, biases included, and a step schedule.
 """
 
 from __future__ import annotations
@@ -62,9 +66,12 @@ class Optimizer:
         self.lr_scale = 1.0
         self.params: list[torch.Tensor] = []
 
-    def init(self, params: Iterable[torch.Tensor]) -> None:
-        """Bind the parameters and create the state: moments (or the
-        momentum trace), lookahead slow weights, the accumulator, counters."""
+    def init(self, params: Iterable[torch.Tensor] | torch.nn.Module) -> None:
+        """Bind the parameters (a module's, or an iterable of them) and
+        create the state: moments (or the momentum trace), lookahead slow
+        weights, the accumulator, counters."""
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
         self.params = list(params)
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mask = weight_decay_mask(self.params)
@@ -162,6 +169,87 @@ class Optimizer:
             if getattr(self, key) and len(state[key]):
                 setattr(self, key, [torch.as_tensor(t, dtype=p.dtype).to(p.device).clone()
                                     for t, p in zip(state[key], self.params)])
+
+
+class _ScheduledAdam(Optimizer):
+    """Adam with coupled L2 on every parameter and the learning rate of
+    ``schedule(count)`` (count = the updates before this one), as optax's
+    ``add_decayed_weights -> scale_by_adam -> scale_by_schedule -> scale(-1)``."""
+
+    def __init__(self, schedule, weight_decay: float) -> None:
+        super().__init__("adam", 0.0, weight_decay, betas=(0.9, 0.999), eps=1e-8,
+                         momentum=0.9, lookahead=False, grad_accum_steps=1)
+        self.schedule = schedule
+
+    def init(self, params) -> None:
+        super().init(params)
+        self.mask = [True] * len(self.params)  # biases and norms decay too
+
+    def _rule_updates(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        self.lr = self.schedule(self.count - 1)
+        return super()._rule_updates(grads)
+
+
+class TwoTierOptimizer:
+    """DTFD's two optimizers (ref ``model_interface_dtfd.py:594-607``): one
+    :class:`_ScheduledAdam` over tier 1 (dimreduction, attention,
+    classifier) and one over tier 2 (``attCls``), split by the model's
+    ``parameter_groups()``, so :meth:`init` takes the model. The trainer's
+    plateau ``lr_scale`` scales both."""
+
+    grad_accum_steps = 1  # no accumulation, as JAX's (General.grad_acc is not applied)
+
+    def __init__(self, schedule, weight_decay: float) -> None:
+        self.tiers = (_ScheduledAdam(schedule, weight_decay),
+                      _ScheduledAdam(schedule, weight_decay))
+        self.params: list[torch.Tensor] = []
+
+    def init(self, model: torch.nn.Module) -> None:
+        if not hasattr(model, "parameter_groups"):
+            raise TypeError("the DTFD optimizer takes the DTFD model, whose parameter_groups() "
+                            "split its two tiers")
+        for tier, params in zip(self.tiers, model.parameter_groups()):
+            tier.init(params)
+        self.params = [p for tier in self.tiers for p in tier.params]
+
+    @property
+    def lr_scale(self) -> float:
+        return self.tiers[0].lr_scale
+
+    @lr_scale.setter
+    def lr_scale(self, value: float) -> None:
+        for tier in self.tiers:
+            tier.lr_scale = value
+
+    def step(self) -> bool:
+        return all([tier.step() for tier in self.tiers])
+
+    def state_dict(self) -> dict:
+        return {"tier1": self.tiers[0].state_dict(), "tier2": self.tiers[1].state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        for tier, key in zip(self.tiers, ("tier1", "tier2")):
+            tier.load_state_dict(state[key])
+
+
+def create_dtfd_optimizer(steps_per_epoch: int, lr: float = 1e-4, weight_decay: float = 1e-2,
+                          milestone_epochs: Sequence[float] = (100,),
+                          gamma: float = 0.2) -> TwoTierOptimizer:
+    """DTFD's two-tier Adam (JAX ``create_dtfd_optimizer``): Adam(lr, coupled
+    L2 ``weight_decay`` on every parameter) a tier, each with
+    MultiStepLR(``milestone_epochs``, ``gamma``) as optax's
+    ``piecewise_constant_schedule``: from update ``int(e * steps_per_epoch)``
+    on (counting from 0) the rate is multiplied by ``gamma``, in float32."""
+    boundaries = sorted(int(e * steps_per_epoch) for e in milestone_epochs)
+
+    def schedule(count: int) -> float:
+        v = np.float32(lr)
+        for b in boundaries:
+            if count >= b:
+                v = np.float32(v * np.float32(gamma))
+        return float(v)
+
+    return TwoTierOptimizer(schedule, weight_decay)
 
 
 def create_optimizer(opt: str = "lookahead_radam", lr: float = 2e-4, weight_decay: float = 0.01,

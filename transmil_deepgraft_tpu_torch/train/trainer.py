@@ -9,6 +9,16 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
 - the forward is the head's own: a coord-aware head (RoFormerMIL) gets
   ``Batch.padded_coords`` as its second argument, or the square-grid
   fallback when the batch has none, as the JAX Trainer stages them;
+- DTFD (``model_name`` DTFD/DTFDMIL, with ``create_dtfd_optimizer``): the
+  loss is ``(slide loss + the pseudo-bags' loss against the slide's label) /
+  2`` (ref ``model_interface_dtfd.py:268``), eval takes the slide logits,
+  and the pseudo-bag split draws from a ``torch.Generator`` seeded from
+  ``seed + 2`` (JAX's ``shuffle`` stream), the identity under
+  ``train_deterministic``;
+- BatchNorm heads (CTMIL, ``resnet50``) train with flax's BatchNorm rule
+  and keep their running statistics in every checkpoint (JAX's Trainer
+  cannot train them, ROADMAP C6); MDMIL is refused, as JAX's Trainer fails
+  on it (its forward returns the attention by default, ROADMAP C9);
 - validation/test: per-slide probabilities in eval mode (TransMIL's fused
   K1/K2 path on the card), slide CE loss, slide and patient AUROC (positive
   slide filter), classification reports, Youden-J thresholds persisted to
@@ -27,8 +37,7 @@ Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 of the JAX Trainer.
 
 Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
-attention tile export, tile-level aggregation, DTFD, meshes and prefetch
-threads.
+attention tile export, tile-level aggregation, meshes and prefetch threads.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
+from transmil_deepgraft_tpu_torch.models import head_logits
+from transmil_deepgraft_tpu_torch.models.dtfd import PseudoBagShuffle
 from transmil_deepgraft_tpu_torch.models.layers import Dropout
 from transmil_deepgraft_tpu_torch.train.aggregation import aggregate_patients
 from transmil_deepgraft_tpu_torch.train.losses import LossFn
@@ -144,6 +155,10 @@ class Trainer:
                  n_classes: int, loss_fn: LossFn, config: TrainerConfig,
                  model_name: str = "TransMIL") -> None:
         _refuse_unported(config)
+        if model_name == "MDMIL":
+            raise NotImplementedError(
+                "MDMIL does not train: its forward returns (logits, attention) by default, "
+                "which JAX's Trainer hands to the loss and fails on (ROADMAP C9)")
         self.model = model
         self.tx = tx
         self.dm = datamodule
@@ -151,14 +166,18 @@ class Trainer:
         self.loss_fn = loss_fn
         self.cfg = config
         self.model_name = model_name
+        self.is_dtfd = model_name in ("DTFD", "DTFDMIL")
         # coord-aware heads take the tile grid coordinates as a second
         # forward argument
         self.coord_aware = bool(getattr(model, "coord_aware", False))
         self.device = next(model.parameters()).device
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+        self.shuffle_generator = torch.Generator(device=self.device).manual_seed(config.seed + 2)
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
+            if isinstance(m, PseudoBagShuffle):
+                m.generator = self.shuffle_generator
 
         self.log_dir = Path(config.log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
@@ -174,25 +193,34 @@ class Trainer:
 
     # ------------------------------------------------------------ train step
     def _train_mode(self) -> None:
-        """Train mode; with ``train_deterministic`` every dropout stays off."""
+        """Train mode; with ``train_deterministic`` every dropout and DTFD's
+        pseudo-bag shuffle stay off."""
         self.model.train()
         if self.cfg.train_deterministic:
             for m in self.model.modules():
-                if isinstance(m, torch.nn.Dropout):
+                if isinstance(m, (torch.nn.Dropout, PseudoBagShuffle)):
                     m.eval()
 
     def forward(self, bags: torch.Tensor, coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The head's logits: ``coords`` go to a coord-aware head (None: its
         square-grid fallback, the JAX Trainer's ``grid_coords``), and to no
         other."""
-        return self.model(bags, coords) if self.coord_aware else self.model(bags)
+        return head_logits(self.model, *((bags, coords) if self.coord_aware else (bags,)))
 
     def loss(self, bags: torch.Tensor, labels: torch.Tensor,
              coords: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The train forward: (loss, logits) of one batch, in train mode."""
         self._train_mode()
-        logits = self.forward(bags, coords)
-        return self.loss_fn(logits, F.one_hot(labels, self.n_classes).float()), logits
+        one_hot = F.one_hot(labels, self.n_classes).float()
+        if not self.is_dtfd:
+            logits = self.forward(bags, coords)
+            return self.loss_fn(logits, one_hot), logits
+        # the two tiers' losses averaged (ref model_interface_dtfd.py:268);
+        # the factor sets the data-gradient to weight-decay ratio of the
+        # coupled-L2 Adams
+        sub, logits = self.model(bags)
+        sub_loss = self.loss_fn(sub, one_hot[:1].expand(sub.shape[0], -1))
+        return (self.loss_fn(logits, one_hot) + sub_loss) / 2.0, logits
 
     def train_step(self, bags: torch.Tensor, labels: torch.Tensor,
                    coords: Optional[torch.Tensor] = None) -> tuple[float, np.ndarray]:
@@ -263,7 +291,7 @@ class Trainer:
 
     def _fit(self) -> dict[str, float]:
         if not self.tx.params:  # the optimizer binds the weights as they are now
-            self.tx.init(self.model.parameters())
+            self.tx.init(self.model)
         fit = {**_FIT_START, **(self._resume_fit_state or {})}
         start_epoch = int(fit.pop("epoch"))
         lr_scale = self.tx.lr_scale  # restored with the optimizer state on resume
@@ -273,8 +301,9 @@ class Trainer:
             t0 = time.time()
             # the dropout stream of an epoch depends on the epoch alone, so a
             # resumed run draws what a straight-through run draws
-            self.dropout_generator.manual_seed(
-                int(np.random.SeedSequence([self.cfg.seed + 1, epoch]).generate_state(1)[0]))
+            for gen, seed in ((self.dropout_generator, self.cfg.seed + 1),
+                              (self.shuffle_generator, self.cfg.seed + 2)):
+                gen.manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
             for step, batch in enumerate(self.dm.train_batches(epoch)):
                 loss, probs = self.train_step(*self._batch_tensors(batch),
@@ -355,8 +384,9 @@ class Trainer:
         if "model" in obj:
             self.model.load_state_dict(obj["model"])
         elif "params" in obj:
-            self.model.load_state_dict(head_state_dict_from_jax(self.model_name, obj["params"],
-                                                                self._in_features()))
+            stats = (obj.get("model_state") or {}).get("batch_stats") or None
+            self.model.load_state_dict(head_state_dict_from_jax(
+                self.model_name, obj["params"], self._in_features(), stats))
         else:
             raise ValueError(f"no weights in checkpoint {path}")
 
@@ -369,7 +399,7 @@ class Trainer:
         self.load_checkpoint(path)
         if "fit" not in obj or not ("optimizer" in obj or "opt_state" in obj):
             return False
-        self.tx.init(self.model.parameters())
+        self.tx.init(self.model)
         if "optimizer" in obj:
             state = obj["optimizer"]
         else:

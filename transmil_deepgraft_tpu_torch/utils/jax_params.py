@@ -9,13 +9,16 @@ becomes (heads, 1, 33, 1); the PPEG kernels (k, k, 1, C) become (C, 1, k, k).
 
 The other heads (:func:`head_state_dict_from_jax`): one table a head,
 :func:`head_layout`, pairs each flax leaf with its key in the port's
-``state_dict`` and the transform between them; ``utils/torch_weights`` reads
-the same tables backwards for the reference's ``.pth`` converters.
+``state_dict`` and the transform between them (a BatchNorm head's running
+statistics are ``batch_stats`` leaves); ``utils/torch_weights`` reads the
+same tables backwards for the reference's ``.pth`` converters.
 
 ResNet (:func:`resnet_state_dict_from_jax`) and the int8 ResNet50
 (:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
 the optax state of ``create_optimizer`` (moments, slow weights, counters, the
-gradient accumulator and the plateau scale) onto the port's optimizer.
+gradient accumulator and the plateau scale) onto the port's optimizer, and
+that of ``create_dtfd_optimizer`` (two masked Adams) onto its
+``TwoTierOptimizer``.
 """
 
 from __future__ import annotations
@@ -93,10 +96,17 @@ def state_dict_from_jax(params: Mapping[str, Any], in_features: int) -> dict[str
 
 # (flax leaf path "a/b/c", port state_dict key, transform) of one head; the
 # transforms: "id", "T" (a Dense kernel (in, out) <-> a Linear weight
-# (out, in)), "conv1d" (Chowder's scorer kernel (L, 1) <-> Conv1d (1, L, 1))
+# (out, in)), "conv1d" (Chowder's scorer kernel (L, 1) <-> Conv1d (1, L, 1)),
+# "conv" (an HWIO conv kernel, PPEG's depthwise (k, k, 1, C) included <->
+# OIHW), "res_conv" (the value residual's (ks, heads) <-> (heads, 1, ks, 1)).
+# BatchNorm running statistics are leaves of the flax ``batch_stats``,
+# written "batch_stats/<path>".
 Layout = list[tuple[str, str, str]]
-TO_TORCH = {"id": lambda a: a, "T": lambda a: a.T, "conv1d": lambda a: a.T[:, :, None]}
-TO_FLAX = {"id": lambda w: w, "T": lambda w: w.T, "conv1d": lambda w: w[:, :, 0].T}
+TO_TORCH = {"id": lambda a: a, "T": lambda a: a.T, "conv1d": lambda a: a.T[:, :, None],
+            "conv": lambda a: a.transpose(3, 2, 0, 1), "res_conv": lambda a: a.T[:, None, :, None]}
+TO_FLAX = {"id": lambda w: w, "T": lambda w: w.T, "conv1d": lambda w: w[:, :, 0].T,
+           "conv": lambda w: w.transpose(2, 3, 1, 0), "res_conv": lambda w: w[:, 0, :, 0].T}
+BATCH_STATS = "batch_stats/"
 
 
 def _dense(flax: str, key: str, bias: bool = True) -> Layout:
@@ -108,16 +118,77 @@ def _norm(flax: str, key: str) -> Layout:
     return [(f"{flax}/scale", f"{key}.weight", "id"), (f"{flax}/bias", f"{key}.bias", "id")]
 
 
-def _gated_attention_layout(prefix: str = "") -> Layout:
+def _gated_attention_layout(prefix: str = "", flax: str = "") -> Layout:
     """The raw gated-attention params of ``ops/pooling.gated_attention_pool``
     (weight (in, out) plus a separate bias) <-> the reference's
     ``attention_V.0`` / ``attention_U.0`` / ``attention_weights`` Linears."""
     out: Layout = []
     for name in ("attention_V", "attention_U"):
-        out += [(name, f"{prefix}{name}.0.weight", "T"),
-                (f"{name}_bias", f"{prefix}{name}.0.bias", "id")]
-    return out + [("attention_weights", f"{prefix}attention_weights.weight", "T"),
-                  ("attention_weights_bias", f"{prefix}attention_weights.bias", "id")]
+        out += [(f"{flax}{name}", f"{prefix}{name}.0.weight", "T"),
+                (f"{flax}{name}_bias", f"{prefix}{name}.0.bias", "id")]
+    return out + [(f"{flax}attention_weights", f"{prefix}attention_weights.weight", "T"),
+                  (f"{flax}attention_weights_bias", f"{prefix}attention_weights.bias", "id")]
+
+
+def _batchnorm(flax: str, key: str) -> Layout:
+    """A flax BatchNorm (params and ``batch_stats``) <-> ``nn.BatchNorm2d``."""
+    return _norm(flax, key) + [(f"{BATCH_STATS}{flax}/mean", f"{key}.running_mean", "id"),
+                               (f"{BATCH_STATS}{flax}/var", f"{key}.running_var", "id")]
+
+
+def _transmil_body_layout(classifier: tuple[str, str]) -> Layout:
+    """TransMIL's body (``models/transmil.TransMILBody``): the cls token, the
+    two TransLayers, PPEG, the LayerNorm and the (flax, port) classifier."""
+    out: Layout = [("cls_token", "cls_token", "id")]
+    for layer in ("layer1", "layer2"):
+        out += _norm(f"{layer}/norm", f"{layer}.norm")
+        out += _dense(f"{layer}/attn/to_qkv", f"{layer}.attn.to_qkv", bias=False)
+        out += _dense(f"{layer}/attn/to_out", f"{layer}.attn.to_out.0")
+        out += [(f"{layer}/attn/res_conv", f"{layer}.attn.res_conv.weight", "res_conv")]
+    for name in ("proj", "proj1", "proj2"):
+        out += [(f"pos_layer/{name}", f"pos_layer.{name}.weight", "conv"),
+                (f"pos_layer/{name}_bias", f"pos_layer.{name}.bias", "id")]
+    return out + _norm("norm", "norm") + _dense(*classifier)
+
+
+def _resnet_layout(flax: str, key: str, layers=(3, 4, 6, 3)) -> Layout:
+    """The bottleneck ResNet of ``models/resnet.ResNet`` (flax module names
+    on both sides)."""
+    out = [(f"{flax}/conv1/kernel", f"{key}.conv1.weight", "conv")]
+    out += _batchnorm(f"{flax}/bn1", f"{key}.bn1")
+    in_planes = 64
+    for stage, n_blocks in enumerate(layers):
+        planes = (64, 128, 256, 512)[stage]
+        for b in range(n_blocks):
+            f, k = f"{flax}/layer{stage + 1}_{b}", f"{key}.layer{stage + 1}_{b}"
+            for i in (1, 2, 3):
+                out += [(f"{f}/conv{i}/kernel", f"{k}.conv{i}.weight", "conv")]
+                out += _batchnorm(f"{f}/bn{i}", f"{k}.bn{i}")
+            if b == 0 and ((1, 2, 2, 2)[stage] != 1 or in_planes != planes * 4):
+                out += [(f"{f}/downsample_conv/kernel", f"{k}.downsample_conv.weight", "conv")]
+                out += _batchnorm(f"{f}/downsample_bn", f"{k}.downsample_bn")
+            in_planes = planes * 4
+    return out
+
+
+def _clam_layout(multi_branch: bool, n_classes: int, instance_classifiers: bool,
+                 dropout: bool = False) -> Layout:
+    """CLAM (``models/clam.py``): with ``dropout`` the gate sits at index 3
+    of ``attention_net``."""
+    gate = f"attention_net.{3 if dropout else 2}"
+    out = _dense("fc", "attention_net.0")
+    out += _dense("attention_net/attention_a", f"{gate}.attention_a.0")
+    out += _dense("attention_net/attention_b", f"{gate}.attention_b.0")
+    out += _dense("attention_net/attention_c", f"{gate}.attention_c")
+    if multi_branch:
+        for c in range(n_classes):
+            out += _dense(f"classifier_{c}", f"classifiers.{c}")
+    else:
+        out += _dense("classifiers", "classifiers")
+    if instance_classifiers:
+        for c in range(n_classes):
+            out += _dense(f"instance_classifier_{c}", f"instance_classifiers.{c}")
+    return out
 
 
 def _torch_encoder_layout(flax: str, key: str, num_layers: int) -> Layout:
@@ -146,9 +217,32 @@ def _head_fc1_layout(key: str, two_stage: bool, mid_norm: bool) -> Layout:
 
 
 def head_layout(model_name: str, in_features: int, *, depth: int = 4,
-                mil_mode: str = "att_trans", trans_blocks: int = 4) -> Layout:
+                mil_mode: str = "att_trans", trans_blocks: int = 4, n_classes: int = 2,
+                instance_classifiers: bool = False, dropout: bool = False) -> Layout:
     """The carry-over table of a head other than TransMIL: ``depth`` is
-    RoFormerMIL's, ``mil_mode`` and ``trans_blocks`` MonaiMIL's."""
+    RoFormerMIL's, ``mil_mode`` and ``trans_blocks`` MonaiMIL's,
+    ``n_classes``, ``instance_classifiers`` and ``dropout`` CLAM's."""
+    if model_name in ("CLAM_SB", "CLAM_MB"):
+        return _clam_layout(model_name == "CLAM_MB", n_classes, instance_classifiers, dropout)
+    if model_name in ("DTFD", "DTFDMIL"):
+        return ([("dimreduction/fc1/kernel", "dimreduction.fc1.weight", "T")]
+                + _gated_attention_layout("attention.", "attention/")
+                + _dense("classifier", "classifier.fc")
+                + _gated_attention_layout("attCls.attention.", "attCls/attention/")
+                + _dense("attCls/classifier", "attCls.classifier.fc"))
+    if model_name == "MDMIL":
+        return _dense("fc1", "_fc1.0") + _transmil_body_layout(("fc2", "_fc2"))
+    if model_name == "CTMIL":
+        out: Layout = []
+        for i in (1, 2):
+            out += [(f"conv{i}/kernel", f"conv{i}.0.weight", "conv")]
+            out += _batchnorm(f"bn{i}", f"conv{i}.1")
+        return out + _transmil_body_layout(("fc", "_fc2"))
+    if model_name == "resnet50":
+        return _resnet_layout("resnet", "resnet") + _dense("fc", "fc")
+    if model_name == "DSMIL":
+        return [row for name in ("i_classifier", "q0", "q1", "v", "fcc")
+                for row in _dense(name, name)]
     if model_name == "AttMIL":
         return (_head_fc1_layout("_fc1", in_features == 2048, True)
                 + _gated_attention_layout() + _dense("classifier", "classifier.0"))
@@ -192,7 +286,12 @@ def head_layout(model_name: str, in_features: int, *, depth: int = 4,
 
 def _layout_knobs(model_name: str, params: Mapping[str, Any]) -> dict:
     """The :func:`head_layout` knobs a head's flax params show: RoFormerMIL's
-    depth, MonaiMIL's parts (mean and max hold the same ``myfc`` alone)."""
+    depth, MonaiMIL's parts (mean and max hold the same ``myfc`` alone),
+    CLAM's class count and instance classifiers."""
+    if model_name in ("CLAM_SB", "CLAM_MB"):
+        return {"n_classes": int(np.shape(params["attention_net"]["attention_c"]["kernel"])[1])
+                if model_name == "CLAM_MB" else int(np.shape(params["classifiers"]["kernel"])[1]),
+                "instance_classifiers": "instance_classifier_0" in params}
     if model_name == "RoFormerMIL":
         return {"depth": sum(1 for k in params if k.startswith("attn_norm_"))}
     if model_name in ("AttTrans", "MonaiMILModel"):
@@ -211,6 +310,7 @@ def head_knobs_from_params(model_name: str, params: Mapping[str, Any],
     'mean' and 'max' hold the same weights: their ``mil_mode`` must be given."""
     knobs = dict(knobs or {})
     shown = _layout_knobs(model_name, params)
+    shown.pop("n_classes", None)  # CLAM's: an argument of its own, not a knob
     if model_name == "RoFormerMIL":
         shown["mlp_dim"] = int(np.shape(params["Dense_0"]["kernel"])[1])
         inner = int(np.shape(params["attn_0"]["to_qkv"]["kernel"])[1]) // 3
@@ -224,17 +324,24 @@ def head_knobs_from_params(model_name: str, params: Mapping[str, Any],
     return {**shown, **knobs}
 
 
-def head_state_dict_from_jax(model_name: str, params: Mapping[str, Any],
-                             in_features: int) -> dict[str, torch.Tensor]:
+def head_state_dict_from_jax(model_name: str, params: Mapping[str, Any], in_features: int,
+                             batch_stats: Mapping[str, Any] | None = None
+                             ) -> dict[str, torch.Tensor]:
     """Flax ``params`` of a ported head -> the port's ``state_dict`` (CPU
     float32 tensors): TransMIL through :func:`state_dict_from_jax`, the
-    others through their :func:`head_layout`."""
+    others through their :func:`head_layout`. A BatchNorm head (CTMIL,
+    ``resnet50``) also takes its ``batch_stats``."""
     if model_name == "TransMIL":
         return state_dict_from_jax(params, in_features)
     flat = flatten(params)
+    if batch_stats is not None:
+        flat.update(flatten(batch_stats, BATCH_STATS))
     layout = head_layout(model_name, in_features, **_layout_knobs(model_name, params))
-    return {key: torch.from_numpy(np.array(TO_TORCH[kind](flat[path]), dtype=np.float32))
-            for path, key, kind in layout}
+    sd = {key: torch.from_numpy(np.array(TO_TORCH[kind](flat[path]), dtype=np.float32))
+          for path, key, kind in layout}
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
+    return sd
 
 
 def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -315,7 +422,10 @@ def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
     Reads ``ScaleByAdamState`` (count, mu, nu), ``TraceState`` (trace),
     ``LookaheadState`` (slow_params, step), ``MultiStepsState`` (mini_step,
     acc_grads) and the mutable lr scale; a missing piece keeps its initial
-    value."""
+    value. DTFD's state (``create_dtfd_optimizer``) goes to
+    :func:`_dtfd_optimizer_state_from_jax`."""
+    if model_name in ("DTFD", "DTFDMIL"):
+        return _dtfd_optimizer_state_from_jax(opt_state, names)
     found: dict = {}
     _optax_fields(opt_state, found)
 
@@ -330,4 +440,33 @@ def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
     for port_key, jax_key in (("mu", "mu"), ("nu", "nu"), ("trace", "trace"),
                               ("slow", "slow_params"), ("acc", "acc_grads")):
         state[port_key] = per_param(found[jax_key]) if jax_key in found else []
+    return state
+
+
+def _dtfd_optimizer_state_from_jax(opt_state: Any, names: list[str]) -> dict:
+    """The optax state of JAX's ``create_dtfd_optimizer`` (a
+    ``multi_transform`` of two masked Adams, numpy leaves or the
+    ``opt_state`` map of a JAX ``last.ckpt``) -> a state for the port's
+    ``TwoTierOptimizer.load_state_dict``; ``names`` is the DTFD model's
+    ``named_parameters`` order, tier 2 the ``attCls.`` ones. Each tier's
+    moment trees hold its own leaves (the other tier's are masked out)."""
+    found: dict = {}
+    _optax_fields(opt_state, found)
+    layout = head_layout("DTFDMIL", 0)
+    lr_scale = float(np.asarray(found.get("lr_scale", 1.0)))
+    state = {}
+    for tier in ("tier1", "tier2"):
+        fields: dict = {}
+        _optax_fields(found["inner_states"][tier], fields)
+        tier_names = [n for n in names if n.startswith("attCls.") == (tier == "tier2")]
+
+        def per_param(tree: Any) -> list[torch.Tensor]:
+            flat = {k: v for k, v in flatten(tree).items() if np.size(v)}
+            sd = {key: torch.from_numpy(np.array(TO_TORCH[kind](flat[path]), dtype=np.float32))
+                  for path, key, kind in layout if path in flat}
+            return [sd[n] for n in tier_names]
+
+        state[tier] = {"count": int(np.asarray(fields["count"])), "mini_step": 0,
+                       "lookahead_step": 0, "lr_scale": lr_scale, "mu": per_param(fields["mu"]),
+                       "nu": per_param(fields["nu"]), "acc": [], "trace": [], "slow": []}
     return state

@@ -1,6 +1,7 @@
 """Torch state dicts -> flax-layout parameter trees (the port's copy of the
-TransMIL, ResNet, AttMIL, TransformerMIL, Chowder and MONAI MIL converters of
-``utils/torch_weights.py``, and a RoFormerMIL one of its own).
+TransMIL, ResNet, AttMIL, TransformerMIL, Chowder, MONAI MIL, CLAM, DTFD,
+MDMIL and CTMIL converters of ``utils/torch_weights.py``, and a RoFormerMIL
+one of its own; the other ported heads read their carry-over table).
 
 The reference's checkpoints (``retccl_best_ckpt.pth``, torchvision ResNets,
 TransMIL Lightning checkpoints, the port's own trainer checkpoints, which use
@@ -25,7 +26,8 @@ from typing import Any, Mapping
 import numpy as np
 
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
-from transmil_deepgraft_tpu_torch.utils.jax_params import TO_FLAX, head_layout, unflatten
+from transmil_deepgraft_tpu_torch.utils.jax_params import (
+    BATCH_STATS, TO_FLAX, head_layout, unflatten)
 
 
 def _np(t: Any) -> np.ndarray:
@@ -201,10 +203,16 @@ def _nest(flat: Mapping[str, Any]) -> dict:
 
 def _from_layout(state_dict: Mapping[str, Any], model_name: str, in_features: int,
                  **knobs: Any) -> dict:
+    """``{'params': ...}`` through the head's carry-over table, and
+    ``'batch_stats'`` for a BatchNorm head."""
     sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
-    return {"params": unflatten({path: TO_FLAX[kind](_np(sd[key]))
-                                 for path, key, kind in head_layout(model_name, in_features,
-                                                                    **knobs)})}
+    flat = {path: TO_FLAX[kind](_np(sd[key]))
+            for path, key, kind in head_layout(model_name, in_features, **knobs)}
+    out = {"params": unflatten({k: v for k, v in flat.items() if not k.startswith(BATCH_STATS)})}
+    stats = {k.removeprefix(BATCH_STATS): v for k, v in flat.items() if k.startswith(BATCH_STATS)}
+    if stats:
+        out["batch_stats"] = unflatten(stats)
+    return out
 
 
 def _count(sd: Mapping[str, Any], fmt: str) -> int:
@@ -255,9 +263,42 @@ def convert_roformer_mil_state_dict(state_dict: Mapping[str, Any],
                         depth=_count(state_dict, "attn_norm_{}.weight"))
 
 
+def convert_clam_state_dict(state_dict: Mapping[str, Any], n_classes: int = 2) -> dict:
+    """torch CLAM_SB / CLAM_MB (ref ``model_clam.py:71-280``) ->
+    ``{'params': ...}``: single or multi branch, the gate at index 2 or 3
+    (with dropout) and the instance classifiers as the keys show."""
+    keys = {k.removeprefix("model.") for k in state_dict}
+    name = "CLAM_SB" if "classifiers.weight" in keys else "CLAM_MB"
+    return _from_layout(state_dict, name, 0, n_classes=n_classes,
+                        instance_classifiers="instance_classifiers.0.weight" in keys,
+                        dropout="attention_net.3.attention_a.0.weight" in keys)
+
+
+def convert_dtfd_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torch DTFD modules (ref ``DTFDMIL.py:14-108`` wired as in
+    ``model_interface_dtfd.py:160-165``) -> ``{'params': ...}``."""
+    return _from_layout(state_dict, "DTFDMIL", 0)
+
+
+def convert_mdmil_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torch MDMIL (ref ``models/MDMIL.py:60-115``) -> ``{'params': ...}``."""
+    return _from_layout(state_dict, "MDMIL", 0)
+
+
+def convert_ctmil_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torch CTMIL (ref ``models/CTMIL.py:74-165``) -> ``{'params': ...,
+    'batch_stats': ...}``. The reference's PPEG ``pos_layer_0`` is the
+    port's ``pos_layer``; its dead ``_fc1`` (declared, never run) is not
+    read."""
+    sd = {k.removeprefix("model.").replace("pos_layer_0.", "pos_layer."): v
+          for k, v in state_dict.items()}
+    return _from_layout(sd, "CTMIL", 0)
+
+
 def convert_head_state_dict(state_dict: Mapping[str, Any], model_name: str,
                             in_features: int) -> dict:
-    """A torch state dict of any ported head -> ``{'params': ...}``."""
+    """A torch state dict of any ported head -> ``{'params': ...}`` (and
+    ``'batch_stats'`` for CTMIL and ``resnet50``)."""
     if model_name == "TransMIL":
         return convert_transmil_state_dict(state_dict, in_features)
     if model_name == "Chowder":
@@ -269,12 +310,22 @@ def convert_head_state_dict(state_dict: Mapping[str, Any], model_name: str,
         parts = ("att_trans" if "transformer.layers.0.norm1.weight" in keys
                  else "att" if "attention.0.weight" in keys else "mean")
         return convert_monai_mil_state_dict(state_dict, parts)
+    if model_name in ("CLAM_SB", "CLAM_MB"):  # the class count of the gate's last Linear
+        gate = [v for k, v in state_dict.items() if k.endswith("attention_c.bias")]
+        n_classes = (len(_np(gate[0])) if model_name == "CLAM_MB" else
+                     len(_np(next(v for k, v in state_dict.items()
+                                  if k.removeprefix("model.") == "classifiers.bias"))))
+        return convert_clam_state_dict(state_dict, n_classes)
     converters = {"AttMIL": convert_attmil_state_dict,
                   "TransformerMIL": convert_transformer_mil_state_dict,
-                  "RoFormerMIL": convert_roformer_mil_state_dict}
-    if model_name not in converters:
-        raise KeyError(f"no torch converter for {model_name!r}")
-    return converters[model_name](state_dict, in_features)
+                  "RoFormerMIL": convert_roformer_mil_state_dict,
+                  "DTFD": lambda sd, _: convert_dtfd_state_dict(sd),
+                  "DTFDMIL": lambda sd, _: convert_dtfd_state_dict(sd),
+                  "MDMIL": lambda sd, _: convert_mdmil_state_dict(sd),
+                  "CTMIL": lambda sd, _: convert_ctmil_state_dict(sd)}
+    if model_name in converters:
+        return converters[model_name](state_dict, in_features)
+    return _from_layout(state_dict, model_name, in_features)  # DSMIL, resnet50
 
 
 def load_torch_checkpoint(path: str) -> dict:
