@@ -210,6 +210,21 @@ ZOO_SPLITS = {512: {"train": 32, "val": 16, "test": 16},
 # the spatial cohorts' tiles a slide: .npy bags carry no coordinates, so
 # every tile of a volume sits at grid (0, 0) and the count only costs writing
 ZOO_SPATIAL_TILES = (20, 40)
+# the extraction phase: 8 slides of 450-550 224x224 JPEG tiles (most end in a
+# ragged batch), the CLI's batch of 100, one small slide for --augment (the
+# augmentation stack costs ~0.1 s a tile on the host); tiles are drawn from a
+# pool of seeded JPEGs (a smooth texture with noise, ~19 KB each)
+EXTRACT_SLIDES = 8
+EXTRACT_TILES = (450, 550)
+EXTRACT_BATCH = 100
+AUG_TILES = 24
+TILE_POOL = 512
+EXTRACT_CONFIG = "DeepGraft/TransMIL_retccl_norm_rest.yaml"
+EXTRACT_SPLITS = {"train": 5, "val": 2, "test": 1}  # one train batch of the config's 5
+# the images run: 200 JPEG tiles a slide, each bag padded to the config's
+# 1,000; 10 train slides make two batches of 5, one grad_acc-2 optimizer step
+IMAGE_SPLITS = {"train": 10, "val": 4, "test": 4}
+IMAGE_TILES = 200
 
 
 def log(msg: str) -> None:
@@ -1707,14 +1722,14 @@ def random_head_params(name: str, in_features: int, out_features: int, knobs: di
 
 
 def heads_config(root: Path, name: str, config: str, data: dict | None = None,
-                 model: dict | None = None) -> Path:
+                 model: dict | None = None, epochs: int = CLI_EPOCHS) -> Path:
     """A repository config as written but for its paths, log path and
-    ``CLI_EPOCHS`` epochs, under ``root/name/`` with its own file name."""
+    ``epochs``, under ``root/name/`` with its own file name."""
     import yaml
 
     cfg = yaml.safe_load((ROOT / "transmil_deepgraft_tpu" / "configs" / config).read_text())
     cfg["Data"].update(data or {})
-    cfg["General"].update({"log_path": str(root / "logs"), "epochs": CLI_EPOCHS})
+    cfg["General"].update({"log_path": str(root / "logs"), "epochs": epochs})
     cfg["Model"].update(model or {})
     path = root / name / Path(config).parent.name / Path(config).name
     path.parent.mkdir(parents=True)
@@ -2255,6 +2270,382 @@ def phase_zoo(rng, results: dict, dev) -> None:
         f"{name} {s:.1f} s" for name, s in parts.items()))
 
 
+def jpeg_pool(rng, n: int = TILE_POOL) -> list[bytes]:
+    """``n`` seeded 224x224 JPEG tiles: crops of a smooth random texture with
+    noise (about the size and decode cost of a tissue tile)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    small = rng.integers(0, 256, (160, 160, 3), dtype=np.uint8)
+    tex = np.asarray(Image.fromarray(small).resize((2048, 2048), Image.BICUBIC), np.int16)
+    tex = (tex + rng.integers(-12, 13, tex.shape)).clip(0, 255).astype(np.uint8)
+    pool = []
+    for y, x in rng.integers(0, 2048 - TILE, (n, 2)):
+        buf = io.BytesIO()
+        Image.fromarray(tex[y:y + TILE, x:x + TILE]).save(buf, format="JPEG", quality=90)
+        pool.append(buf.getvalue())
+    return pool
+
+
+def write_slides(root: Path, rng, pool: list[bytes], counts: dict) -> int:
+    """``root/BLOCKS/<slide>/tile_(x-y).jpg`` for each ``{slide: tiles}``,
+    tiles drawn from ``pool``; returns the bytes written."""
+    total = 0
+    for name, n in counts.items():
+        folder = root / "BLOCKS" / name
+        folder.mkdir(parents=True)
+        for t, k in enumerate(rng.integers(0, len(pool), n)):
+            (folder / f"tile_({t % 32}-{t // 32}).jpg").write_bytes(pool[k])
+            total += len(pool[k])
+    return total
+
+
+def phase_extract(rng, results: dict, dev, variables) -> None:
+    """From tile files to feature bags and image bags, on the card, through
+    the port's entry points: ``cli.extract_features`` of a cohort of 8
+    slides of 450-550 224x224 JPEG tiles with a seeded RetCCL ResNet50 .pth
+    at the CLI's batch of 100, on the float32, ``--quantize int8`` and
+    ``--quantize int8_fused --bagstore`` routes (exact B7/B8 launch counts:
+    4 and 3 a batch, none on float32), and ``--augment 1`` of one slide;
+    int8 and int8_fused features identical, int8 against float32 at cosine
+    > 0.999, the .h5 files read back by ``FeatureBagDataset`` and the bag
+    store equal to them byte for byte; B7/B8 at 100 tiles (a full batch and
+    the ragged last one) held code for code to the plain path and timed
+    beside their bound. Then ``cli.train`` of TransMIL_retccl_norm_rest.yaml
+    as written but for paths and 1 epoch, (A) on the extracted .h5 cohort and
+    (B) with ``Data.variant: images`` on JPEG tile folders (bags of 5 x
+    1,000 224x224 tiles through the frozen ResNet50), exact K1/K2 counts;
+    B's logits on one batch against the all-plain route (float32), its
+    backbone's weights against the coupled-L2 rule (ROADMAP C11), and its
+    optimizer step as the Trainer runs it (the prefetch thread decoding and
+    copying the next batch, pinned, on a side stream, while the device steps
+    on this one), split into decode, copy and device time and what the
+    thread hid of them."""
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.cli import extract_features as cli_extract
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.data import feature_extractor as fe
+    from transmil_deepgraft_tpu_torch.data.bagstore import BagStore
+    from transmil_deepgraft_tpu_torch.data.feature_bags import FeatureBagDataset
+    from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset
+    from transmil_deepgraft_tpu_torch.data.pipeline import to_device
+    from transmil_deepgraft_tpu_torch.data.tiles import parse_coords
+    from transmil_deepgraft_tpu_torch.models import resnet_int8 as qr
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.utils import h5
+    from transmil_deepgraft_tpu_torch.utils.checkpoints import read_checkpoint
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pool = jpeg_pool(rng)
+        counts = {f"slide_{i}": int(rng.integers(EXTRACT_TILES[0], EXTRACT_TILES[1] + 1))
+                  for i in range(EXTRACT_SLIDES)}
+        nbytes = write_slides(root / "cohort", rng, pool, {**counts, "aug_slide": AUG_TILES})
+        names = list(counts)
+        (root / "labels.json").write_text(json.dumps({"test": [[n, i % 2] for i, n in
+                                                                enumerate(names)]}))
+        (root / "aug.json").write_text(json.dumps({"test": [["aug_slide", 0]]}))
+        torch.save(torchvision_state_dict(variables), root / "retccl.pth")
+        n_tiles = sum(counts.values())
+        batches = sum(-(-n // EXTRACT_BATCH) for n in counts.values())
+        log(f"[extract] cohort: {EXTRACT_SLIDES} slides, {n_tiles} tiles ({batches} batches of "
+            f"{EXTRACT_BATCH}), {nbytes / 1e6:.1f} MB of JPEG, written in "
+            f"{time.perf_counter() - t_phase:.2f} s")
+
+        # the three routes, each timed: its streaming part, and decode within it
+        clock = {"decode": 0.0, "stream": 0.0}
+        decode_batch, stream = fe.decode_batch, fe.extract_slide_features
+
+        def timed(fn, key):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                sync(dev)
+                clock[key] += time.perf_counter() - t0
+                return out
+            return run
+
+        fe.decode_batch, fe.extract_slide_features = (timed(decode_batch, "decode"),
+                                                      timed(stream, "stream"))
+        argv = ["--data_dir", str(root / "cohort"), "--label_file", str(root / "labels.json"),
+                "--backbone", "retccl", "--ckpt", str(root / "retccl.pth"),
+                "--batch_size", str(EXTRACT_BATCH), "--device", dev.type]
+        routes = {"float32": [], "int8": ["--quantize", "int8"],
+                  "int8_fused": ["--quantize", "int8_fused", "--bagstore"]}
+        feats: dict = {}
+        try:
+            for route, extra in routes.items():
+                clock.update(decode=0.0, stream=0.0)
+                t0 = time.perf_counter()
+                _, launches = all_launch_counts(lambda: quiet(
+                    cli_extract.main, [*argv, *extra, "--out_dir", str(root / route)],
+                    tag="extract"))
+                wall = time.perf_counter() - t0
+                int8 = route != "float32"
+                log(f"[extract] {route}: {wall:.2f} s in all (model, calibration, writes), "
+                    f"streaming {clock['stream']:.2f} s = {n_tiles / clock['stream']:.1f} tiles/s, "
+                    f"decode {clock['decode']:.2f} s on the decode thread "
+                    f"({clock['decode'] / clock['stream']:.1%} of the streaming time); "
+                    f"launches {launches}")
+                expect_launches_exactly(f"extract {route}", launches,
+                                        qstage_run=4 * batches if int8 else 0,
+                                        qentry_run=3 * batches if int8 else 0)
+                feats[route] = {n: h5.read(root / route / f"{n}.h5") for n in names}
+            clock.update(decode=0.0, stream=0.0)
+            _, launches = all_launch_counts(lambda: quiet(cli_extract.main, [
+                *argv, "--label_file", str(root / "aug.json"), "--augment", "1",
+                "--out_dir", str(root / "aug")], tag="extract"))
+            expect_launches_exactly("extract --augment", launches)
+            log(f"[extract] --augment 1 on one slide of {AUG_TILES} tiles: {AUG_TILES} plain + "
+                f"{AUG_TILES} augmented tiles streamed in {clock['stream']:.2f} s, decode and "
+                f"augmentation {clock['decode']:.2f} s")
+        finally:
+            fe.decode_batch, fe.extract_slide_features = decode_batch, stream
+        aug = [h5.read(root / "aug" / f"aug_slide{s}.h5")["features"] for s in ("", "_aug0")]
+        if not (aug[0].shape == aug[1].shape == (AUG_TILES, 2048) and np.isfinite(aug).all()
+                and np.abs(aug[0] - aug[1]).max() > 1e-3):
+            raise AssertionError("the augmented copy is not a distinct finite bag")
+
+        # the outputs: shapes, coords, int8 == int8_fused, int8 ~ float32
+        cos_min = 1.0
+        for n in names:
+            want_coords = np.array([parse_coords(f.name) for f in sorted(
+                (root / "cohort" / "BLOCKS" / n).iterdir())], np.int32)  # in file-name order
+            for route in routes:
+                f = feats[route][n]
+                if (f["features"].shape != (counts[n], 2048) or f["features"].dtype != np.float32
+                        or not np.isfinite(f["features"]).all()
+                        or f["coords"].tobytes() != want_coords.tobytes()):
+                    raise AssertionError(f"{route} {n}: bad features or coords")
+            int8, fused = feats["int8"][n]["features"], feats["int8_fused"][n]["features"]
+            if int8.tobytes() != fused.tobytes():
+                raise AssertionError(f"{n}: int8 and int8_fused features differ")
+            ref = feats["float32"][n]["features"]
+            cos = (int8 * ref).sum(-1) / (np.linalg.norm(int8, axis=-1)
+                                          * np.linalg.norm(ref, axis=-1))
+            cos_min = min(cos_min, float(cos.min()))
+        log(f"[extract] int8 == int8_fused on all {n_tiles} tiles; int8 vs float32 cosine min "
+            f"{cos_min:.6f} (bar 0.999)")
+        if not cos_min > 0.999:
+            raise AssertionError(f"int8 features too far from float32: cosine {cos_min}")
+        bag_labels = {"test": [[f"{n}.h5", 0] for n in names]}
+        (root / "bags.json").write_text(json.dumps(bag_labels))
+        bags = FeatureBagDataset(root / "int8_fused", root / "bags.json", "test", 2)
+        t0 = time.perf_counter()
+        for n in names:
+            h5.read(root / "int8_fused" / f"{n}.h5")
+        h5_ms = (time.perf_counter() - t0) * 1e3
+        store = BagStore(root / "int8_fused" / "cohort.bags")
+        n_stored = store.n_slides
+        t0 = time.perf_counter()
+        for i in range(n_stored):
+            store.read_bag(i)
+        store_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            for i, n in enumerate(names):  # the store packs the .h5 files in name order
+                want = feats["int8_fused"][n]
+                if (bags._load(i)[0].tobytes() != want["features"].tobytes()
+                        or store.read_bag(i).tobytes() != want["features"].tobytes()
+                        or store.read_coords(i).tobytes() != want["coords"].tobytes()):
+                    raise AssertionError(f"{n}: the dataset or the bag store differs from the .h5")
+        finally:
+            store.close()
+        log(f"[extract] FeatureBagDataset and the bag store ({n_stored} slides) read the "
+            f".h5 files back byte for byte; reading the {n_tiles} x 2048 features (files just "
+            f"written, page cache warm): utils/h5 {h5_ms:.1f} ms, the bag store {store_ms:.1f} ms")
+
+        # B7/B8 at the extraction batch: a full batch and the ragged last one
+        ds = JPGMILDataset(root / "cohort", root / "labels.json", "test", 2)
+        q = qr.build_qresnet50(variables, fe._calibration_tiles(ds, EXTRACT_BATCH), device=dev)
+        prep = qr.prepare_qresnet50_fused(q)
+        held = next(i for i, n in enumerate(names) if counts[n] % EXTRACT_BATCH)  # a ragged slide
+        tiles = ds.tiles_of(held)
+        last = len(tiles) - len(tiles) % EXTRACT_BATCH
+        mean = torch.from_numpy(fe.IMAGENET_MEAN).to(dev)
+        std = torch.from_numpy(fe.IMAGENET_STD).to(dev)
+        for label, paths, rows in (("batch 1", tiles[:EXTRACT_BATCH], slice(0, EXTRACT_BATCH)),
+                                   ("the ragged last batch", tiles[last:], slice(last, None))):
+            # decoded as the CLI decodes it: raw uint8 normalized on the card
+            # with the native loader, normalized on the host with PIL
+            batch = torch.from_numpy(fe.decode_batch(paths, TILE, fe.nt.available(), None))
+            if batch.dtype == torch.uint8:
+                batch = (batch.to(dev).float() / 255.0 - mean) / std
+            x = torch.zeros((EXTRACT_BATCH, TILE, TILE, 3), device=dev)
+            x[:len(paths)] = batch.to(dev)
+            with torch.inference_mode():
+                plain = qr.apply_qresnet50_fused(prep, x, t_cfg=(0,) * 7)
+                for route, run in (("apply_qresnet50", lambda: qr.apply_qresnet50(q, x)), (
+                        "apply_qresnet50_fused", lambda: qr.apply_qresnet50_fused(
+                            prep, x, t_cfg=fe.FUSED_T_CFG))):
+                    qk.reset_launch_counts()
+                    got = run()
+                    sync(dev)
+                    if dict(qk.LAUNCHES) != {"qstage_run": 4, "qentry_run": 3}:
+                        raise AssertionError(f"{route}: launches {qk.LAUNCHES}")
+                    if not torch.equal(got, plain):
+                        raise AssertionError(f"{route} at {EXTRACT_BATCH} tiles ({label}) "
+                                             "differs from the plain int8 path")
+            cli_rows = feats["int8"][names[held]]["features"][rows]
+            diff = float(np.abs(plain[:len(paths)].cpu().numpy() - cli_rows).max())
+            log(f"[extract] {label} of {names[held]} ({len(paths)} tiles, padded to "
+                f"{EXTRACT_BATCH}): "
+                f"both int8 routes == the plain path, 4 + 3 launches each; max |dfeature| vs "
+                f"the CLI's int8 features (its own calibration of the same tiles) {diff:.3e}")
+        with torch.inference_mode():
+            x = qr._stem_q(q, torch.from_numpy(normalize_tiles(np.stack(
+                [fe._load_tile(p, TILE) for p in tiles[:EXTRACT_BATCH]]))).to(dev))
+            totals = {k: [0.0, 0.0, 0.0] for k in ("qstage_run", "qentry_run")}
+            for (name, kernel, run, plain), (_, blocks, entry) in zip(segment_runs(q),
+                                                                       segments(q)):
+                ms = cuda_ms(lambda: run(x))
+                plain_ms = cuda_ms(lambda: plain(x), reps=3, warmup=1)
+                ops, nb = segment_costs(blocks, entry, tuple(x.shape))
+                bound = max(ops / H100_INT8_OPS, nb / H100_BYTES_PER_S) * 1e3
+                for i, v in enumerate((ms, plain_ms, bound)):
+                    totals[kernel][i] += v
+                x = run(x)
+        for kernel, (ms, plain_ms, bound) in totals.items():
+            log(f"[extract] {kernel}, all its launches of one {EXTRACT_BATCH}-tile batch: "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms")
+
+        # cli.train A: the extracted cohort (the .h5 files of the int8_fused route)
+        bag_dir = root / "int8_fused"
+        split_names = iter(names)
+        labels = {split: [[f"{next(split_names)}.h5", i % 2] for i in range(k)]
+                  for split, k in EXTRACT_SPLITS.items()}
+        (root / "train_labels.json").write_text(json.dumps(labels))
+        (root / "patients.json").write_text(json.dumps({n: n for n in names}))
+        data = {"data_dir": str(bag_dir), "label_file": str(root / "train_labels.json"),
+                "patient_dict": str(root / "patients.json")}
+        config_a = heads_config(root, "run_a", EXTRACT_CONFIG, data, epochs=1)
+
+        def train(config: Path, log_dir: Path):
+            return quiet(cli.main, ["--config", str(config), "--log_dir", str(log_dir),
+                                    "--device", dev.type], tag="extract")
+
+        t0 = time.perf_counter()
+        summary, launches = all_launch_counts(lambda: train(config_a, root / "run_a" / "log"))
+        evals = EXTRACT_SPLITS["val"] + EXTRACT_SPLITS["test"]
+        log(f"[extract] cli.train A ({EXTRACT_CONFIG}, the extracted .h5 cohort "
+            f"{EXTRACT_SPLITS}, 1 epoch): {time.perf_counter() - t0:.2f} s, test AUC "
+            f"{summary['test_auc']:.4f}, launches {launches}")
+        expect_launches_exactly("cli.train A", launches, translayer_k1=2 * evals,
+                                translayer_k2=2 * evals)
+
+        # cli.train B: Data.variant images on JPEG tile folders
+        img_counts = {f"{split}_{i}": IMAGE_TILES for split, k in IMAGE_SPLITS.items()
+                      for i in range(k)}
+        write_slides(root / "images", rng, pool, img_counts)
+        labels = {split: [[f"{split}_{i}", i % 2] for i in range(k)]
+                  for split, k in IMAGE_SPLITS.items()}
+        (root / "image_labels.json").write_text(json.dumps(labels))
+        data = {"data_dir": str(root / "images"), "label_file": str(root / "image_labels.json"),
+                "variant": "images"}
+        model = {"backbone_weights": str(root / "retccl.pth")}
+        config_b = heads_config(root, "run_b", EXTRACT_CONFIG, data, model, epochs=1)
+        t0 = time.perf_counter()
+        summary, launches = all_launch_counts(lambda: train(config_b, root / "run_b" / "log"))
+        evals = IMAGE_SPLITS["val"] + IMAGE_SPLITS["test"]
+        row = metric_rows(root / "run_b" / "log")[0]
+        log(f"[extract] cli.train B (variant images, {IMAGE_SPLITS} slides of {IMAGE_TILES} "
+            f"tiles, bags of 1,000 through the frozen ResNet50, 1 epoch): "
+            f"{time.perf_counter() - t0:.2f} s, epoch {row['epoch_time_s']:.2f} s, loss "
+            f"{row['loss']:.4f}, test AUC {summary['test_auc']:.4f}, launches {launches}")
+        expect_launches_exactly("cli.train B", launches, translayer_k1=2 * evals,
+                                translayer_k2=2 * evals)
+
+        # B's frozen backbone after its one optimizer step: coupled L2 on zero
+        # gradients moved each conv kernel by -lr * wd * w (RAdam's first,
+        # unrectified step; no lookahead sync), its BatchNorm not at all
+        cfg = finalize_config(read_yaml(config_b), config_path=config_b)
+        lr, wd = float(cfg.Optimizer.lr), float(cfg.Optimizer.weight_decay)
+        after = read_checkpoint(root / "run_b" / "log" / "checkpoints" / "last.ckpt")["model"]
+        start = torch.load(root / "retccl.pth")
+        w0, w1 = start["layer3.2.conv2.weight"], after["backbone.layer3_2.conv2.weight"].cpu()
+        rule = float((w1 - w0 * (1 - lr * wd)).abs().max() / w0.abs().max())
+        moved = float((w1 - w0).abs().max() / w0.abs().max())
+        bn_same = torch.equal(start["bn1.weight"], after["backbone.bn1.weight"].cpu())
+        log(f"[extract] B's frozen backbone after one step: conv kernel moved by {moved:.3e} of "
+            f"its largest weight, {rule:.3e} off w * (1 - lr * wd) = w * {1 - lr * wd}; "
+            f"BatchNorm unchanged: {bn_same} (ROADMAP C11)")
+        if not (moved > 0.5 * lr * wd and rule < 1e-6 and bn_same):
+            raise AssertionError("the frozen backbone did not follow JAX's coupled-L2 rule")
+
+        # B's logits on one batch, kernel route vs the all-plain route (float32)
+        cfg.General.precision = 32
+        probe = cli.build(cfg, str(root / "run_b" / "probe"), dev.type)
+        probe.model.load_state_dict(after)
+        batch = next(probe.dm.eval_batches("val", batch_size=1))
+        bags = torch.from_numpy(batch.bags).to(dev)
+        with torch.inference_mode():
+            probe.model.eval()
+            _, launches = all_launch_counts(lambda: probe.forward(bags))
+            fused = probe.forward(bags)
+            probe.model.head.fused_inference = False
+            plain = probe.forward(bags)
+        err = float((fused - plain).abs().max())
+        log(f"[extract] B's logits on one val bag ({batch.bags.shape[1]} tiles), K1/K2 route vs "
+            f"all plain (float32): max|dlogit| {err:.3e} (tol {TOL}), launches {launches}")
+        expect_launches_exactly("B logits", launches, translayer_k1=2, translayer_k2=2)
+        if not err <= TOL:
+            raise AssertionError("the images model's kernel route disagrees with the plain route")
+
+        # B's optimizer step (grad_acc 2 micro-steps of 5 x 1,000 tiles) as the
+        # Trainer runs it: the prefetch thread decodes a batch (JPEG decode,
+        # normalize, pad, collate) and copies it, pinned, on a side stream,
+        # while the device steps on the one before. Decode is timed on the
+        # thread, the device in the loop; what the wall time falls short of
+        # decode + copy + device is what the thread hid.
+        spent = {"decode": 0.0, "device": 0.0}
+
+        def timed(batches):  # runs on the prefetch thread
+            it = iter(batches)
+            while True:
+                t0 = time.perf_counter()
+                b = next(it, None)
+                spent["decode"] += time.perf_counter() - t0
+                if b is None:
+                    return
+                yield b
+
+        probe.model.train()
+        probe.tx.init(probe.model)
+        sync(dev)
+        t_step = time.perf_counter()
+        for batch, bags, labels, _ in probe._staged(timed(probe.dm.train_batches(0))):
+            t0 = time.perf_counter()
+            probe.train_step(bags, labels)
+            sync(dev)
+            spent["device"] += time.perf_counter() - t0
+        wall = time.perf_counter() - t_step
+        del bags, labels
+        # the last batch's copy, pageable (in the loop) and pinned on a side stream (the thread)
+        t0 = time.perf_counter()
+        probe._batch_tensors(batch)
+        sync(dev)
+        pageable = time.perf_counter() - t0
+        stream = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        to_device(probe._batch_arrays(batch)[:2], dev, stream)
+        stream.synchronize()
+        pinned = time.perf_counter() - t0
+        acc = probe.tx.grad_accum_steps
+        parts = spent["decode"] + acc * pinned + spent["device"]
+        log(f"[extract] B's optimizer step ({acc} micro-steps of {tuple(batch.bags.shape)} "
+            f"float32 tiles) through the Trainer's prefetch thread: {wall * 1e3:.1f} ms; "
+            f"decode {spent['decode'] * 1e3:.1f} ms on the thread + pinned side-stream copy "
+            f"{pinned * 1e3:.1f} a batch (pageable {pageable * 1e3:.1f}) + device (forward, "
+            f"backward, update) {spent['device'] * 1e3:.1f} ms = {parts * 1e3:.1f} ms, "
+            f"{(parts - wall) * 1e3:.1f} ms ({(parts - wall) / parts:.1%}) hidden")
+    log(f"[env] extract phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2300,6 +2691,7 @@ def main() -> int:
     phase_heads(rng, results, dev, variables)
     log(f"[env] heads phase {time.perf_counter() - t_new:.1f} s")
     phase_zoo(rng, results, dev)
+    phase_extract(rng, results, dev, variables)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

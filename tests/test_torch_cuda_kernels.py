@@ -191,6 +191,45 @@ def test_qstage_kernel_exact_on_large_sums(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("real", [100, 37], ids=["batch-100", "ragged-37-of-100"])
+def test_int8_resnet_at_the_extraction_batch(cuda_device, real):
+    """The int8 ResNet50 at feature extraction's batch: 100 tiles of 224x224
+    (the ragged last batch: 37 real tiles, zero-padded to 100), through
+    ``apply_qresnet50`` (the kernels, one tile per step) and
+    ``apply_qresnet50_fused`` with extraction's t_cfg (1, 1, 2, 1, 2, 1, 2):
+    both give the all-plain route's features bit for bit (the same codes),
+    each with 4 stage and 3 entry launches."""
+    from transmil_deepgraft_tpu_torch.data.feature_extractor import FUSED_T_CFG
+    from transmil_deepgraft_tpu_torch.models import resnet_int8 as qr
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet50
+    from transmil_deepgraft_tpu_torch.utils.jax_params import variables_from_module
+
+    rng = np.random.default_rng(real)
+    torch.manual_seed(real)
+    net = resnet50()
+    with torch.no_grad():  # non-trivial BatchNorm, so that the fold matters
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.8, 1.2)
+                m.bias.uniform_(-0.05, 0.05)
+                m.running_mean.uniform_(-0.05, 0.05)
+                m.running_var.uniform_(0.9, 1.1)
+    tiles = rng.standard_normal((100, 224, 224, 3)).astype(np.float32)
+    tiles[real:] = 0.0
+    q = qr.build_qresnet50(variables_from_module(net), tiles[:8], device=cuda_device)
+    prep = qr.prepare_qresnet50_fused(q)
+    x = torch.from_numpy(tiles).to(cuda_device)
+    want = qr.apply_qresnet50_fused(prep, x, t_cfg=(0,) * 7)
+    for run in (lambda: qr.apply_qresnet50(q, x),
+                lambda: qr.apply_qresnet50_fused(prep, x, t_cfg=FUSED_T_CFG)):
+        qk.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        assert qk.LAUNCHES == {"qstage_run": 4, "qentry_run": 3}
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(2, 1280), (1, 41472), (2, 1000)],
                          ids=["train-1280", "bag-41472", "ragged-1000"])
 @pytest.mark.parametrize("form", ["packed", "bh"])

@@ -6,7 +6,9 @@ label JSON whose paths carry ``FEATURES_RETCCL_2048``, a patient map, one
 slide whose file is missing and one slide absent from the map. Datasets,
 train batches (epochs 0-2) and eval batches must be byte-identical to the
 JAX package's, on the per-file path and on the bag-store path; a store
-written by either package reads back the same in the other.
+written by either package reads back the same in the other. The data
+module's other sources (JPEG tile folders, legacy tile stacks, Camelyon)
+give JAX's batches too.
 """
 
 import json
@@ -150,11 +152,77 @@ def test_bagstore_reads_across_packages(tmp_path):
         tbagstore.BagStore(tmp_path / "port.bags").read_bag(3)
 
 
-# the spatial variant is ported (tests/test_torch_zoo.py); from Camelyon it is not
+@pytest.fixture(scope="module")
+def image_cohorts(tmp_path_factory):
+    """The other sources of the data module: slides as folders of 16x16 JPEG
+    tiles named with their (x-y) grid position (``images``), the same tiles
+    as .npy stacks (``image_bags``), and Camelyon's fold CSV (columns of
+    uneven length) with .pt feature bags. Returns {source: (data_dir,
+    label_path)}."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("image_cohorts")
+    for sub in ("stacks", "camelyon"):
+        (root / sub).mkdir()
+    r = np.random.default_rng(1)
+    labels, columns = {}, {}
+    for split, n in (("train", 5), ("val", 2), ("test", 3)):
+        labels[split], columns[split], columns[f"{split}_label"] = [], [], []
+        for i in range(n):
+            name, y = f"{split}_{i}", i % 2
+            tiles = r.integers(0, 256, (int(r.integers(3, 8)), 16, 16, 3), dtype=np.uint8)
+            folder = root / "jpg" / "BLOCKS" / name
+            folder.mkdir(parents=True)
+            for t, img in enumerate(tiles):
+                Image.fromarray(img).save(folder / f"{name}_({t + 3}-{t % 2 + 1}).jpg")
+            np.save(root / "stacks" / f"{name}.npy", tiles)
+            feats = r.standard_normal((int(r.integers(5, 30)), DIM)).astype(np.float32)
+            torch.save(torch.from_numpy(feats), root / "camelyon" / f"{name}.pt")
+            labels[split].append([name, y])
+            columns[split].append(name)
+            columns[f"{split}_label"].append(str(y))
+    (root / "labels.json").write_text(json.dumps(labels))
+    rows = max(len(c) for c in columns.values())
+    lines = ["," + ",".join(columns)]
+    for i in range(rows):
+        lines.append(f"{i}," + ",".join(c[i] if i < len(c) else "" for c in columns.values()))
+    (root / "fold0.csv").write_text("\n".join(lines) + "\n")
+    return {"images": (root / "jpg", root / "labels.json"),
+            "image_bags": (root / "stacks", root / "labels.json"),
+            "camelyon": (root / "camelyon", root)}
+
+
+# the spatial variant on feature bags is held in tests/test_torch_zoo.py; with
+# Camelyon's source it reads Camelyon's bags, as in JAX. 'tiles' (the classic
+# per-tile models) is not ported yet.
 @pytest.mark.parametrize("over", [{"variant": "spatial", "dataset_name": "camelyon"},
                                   {"variant": "images"},
                                   {"variant": "tiles"}, {"variant": "image_bags"},
                                   {"dataset_name": "camelyon"}], ids=str)
-def test_datamodule_refuses_what_is_not_ported(cohort, over):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        MILDataModule(str(cohort / "data"), str(cohort / "labels.json"), **over)
+def test_datamodule_refuses_what_is_not_ported(cohort, image_cohorts, over):
+    """What the port has not ported raises naming its ROADMAP item; every
+    other source gives JAX's train batches (epochs 0 and 1) and eval batches
+    byte for byte."""
+    if over.get("variant") == "tiles":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            MILDataModule(str(cohort / "data"), str(cohort / "labels.json"), **over)
+        return
+    data_dir, label_path = image_cohorts[over.get("dataset_name", over.get("variant"))]
+    kw = dict(n_classes=2, max_bag_size=5, batch_size=2, tile_size=16, **over)
+    jdm = JaxDataModule(str(data_dir), str(label_path), **kw)
+    tdm = MILDataModule(str(data_dir), str(label_path), **kw)
+    pairs = [(jdm.train_batches(e), tdm.train_batches(e)) for e in (0, 1)]
+    pairs += [(jdm.eval_batches(m, batch_size=2), tdm.eval_batches(m, batch_size=2))
+              for m in ("val", "test")]
+    for jb_iter, tb_iter in pairs:
+        jbs, tbs = list(jb_iter), list(tb_iter)
+        assert len(jbs) == len(tbs) > 0
+        for jb, tb in zip(jbs, tbs):
+            assert jb.bags.shape == tb.bags.shape and jb.bags.tobytes() == tb.bags.tobytes()
+            assert jb.labels.tobytes() == tb.labels.tobytes()
+            assert jb.lengths.tobytes() == tb.lengths.tobytes()
+            assert (jb.names, jb.patients) == (tb.names, tb.patients)
+            assert [c.tobytes() for c in jb.coords] == [c.tobytes() for c in tb.coords]
+            assert (jb.padded_coords is None) == (tb.padded_coords is None)
+            if jb.padded_coords is not None:
+                assert jb.padded_coords.tobytes() == tb.padded_coords.tobytes()

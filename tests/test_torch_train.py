@@ -121,13 +121,17 @@ def test_batches_are_byte_identical_to_jax():
             assert (jb.names, jb.patients) == (tb.names, tb.patients)
             assert jb.padded_coords.tobytes() == tb.padded_coords.tobytes()
     assert jdm.steps_per_epoch() == tdm.steps_per_epoch()
-    # feature bags and spatial volumes from data_dir are ported (the spatial
-    # variant is held to JAX in test_torch_zoo.py); the other variants and
-    # Camelyon are not
+    # every source but the classic per-tile one is ported (the images,
+    # image_bags and Camelyon sources are held to JAX in
+    # test_torch_feature_bags.py, the spatial variant in test_torch_zoo.py)
     for over in ({"variant": "images"}, {"variant": "tiles"}, {"variant": "image_bags"},
                  {"dataset_name": "camelyon"}):
-        with pytest.raises(NotImplementedError):
-            MILDataModule("/nonexistent", n_classes=2, **over)
+        if over.get("variant") == "tiles":
+            with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+                MILDataModule("/nonexistent", n_classes=2, **over)
+        else:
+            assert MILDataModule("/nonexistent", n_classes=2, **over).dataset_name in (
+                "custom", "camelyon")
 
 
 # -------------------------------------------------------------- optimizer

@@ -2,8 +2,9 @@
 
 The JAX package beside this one is the reference: every module here mirrors a
 module there by name, and the tests hold each one to its JAX counterpart on
-the same inputs and weights. This package imports ``torch``, ``numpy`` and,
-to decode tiles, PIL (never ``jax``, ``flax`` or ``transmil_deepgraft_tpu``).
+the same inputs and weights. This package imports ``torch``, ``numpy``,
+PIL to decode tiles and scipy to augment them (never ``jax``, ``flax`` or
+``transmil_deepgraft_tpu``); HDF5 files go through its own ``utils/h5.py``.
 
 The TPU kernels on the serving path are CUDA C++: the fused TransLayer's
 ``_k1``/``_k2`` in ``csrc/translayer.cu``, and the int8 ResNet50's
@@ -12,7 +13,7 @@ compiled with ``nvcc`` at first use into ``build/torch_kernels/`` and called
 through ``ctypes``.
 
 The command-line entry points are ``cli.export_model``, ``cli.serve``,
-``cli.infer`` and ``cli.train``. Slide tiles decode with the JAX package's
+``cli.infer``, ``cli.train`` and ``cli.extract_features``. Slide tiles decode with the JAX package's
 threaded libjpeg loader, of which ``native/tileloader.cpp`` is a copy that
 ``g++`` builds into ``build/native/`` at first use, or with PIL where it
 cannot build; the bag store's ``native/bagstore.cpp`` is built the same way.

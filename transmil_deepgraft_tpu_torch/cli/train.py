@@ -21,8 +21,13 @@ MonaiMILModel, CLAM_SB/MB (on the bag loss, as JAX's), DSMIL, DTFD (batch 1,
 ``create_dtfd_optimizer``), and CTMIL and ``resnet50`` on the spatial
 variant's feature volumes. ``General.precision`` 16 or ``16-mixed`` trains a
 bfloat16-compute TransMIL, and the other heads in float32, as the JAX
-package's ``create_model`` does. The classic per-tile models (ROADMAP A8)
-are not ported yet and raise.
+package's ``create_model`` does. ``Data.variant: images`` trains a head
+behind a frozen tile backbone (``Model.backbone``: retccl, resnet50,
+resnet18 or simple; ``Model.backbone_weights`` a .pth or flax msgpack file)
+on JPEG tile folders, ``image_bags`` on legacy HDF5/npy tile stacks, and
+``Data.dataset_name: camelyon`` reads Camelyon16's fold CSVs. The classic
+per-tile models and the ``tiles`` variant (ROADMAP A8) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -82,11 +87,13 @@ def _model_extras(cfg, model_name: str) -> dict:
 def build(cfg, log_dir: str | None = None, device: str | None = None):
     from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
     from transmil_deepgraft_tpu_torch.device import resolve_device
-    from transmil_deepgraft_tpu_torch.models import NOT_PORTED, SPATIAL_HEADS, create_model
+    from transmil_deepgraft_tpu_torch.models import (
+        NOT_PORTED, SPATIAL_HEADS, ImageMILModel, create_backbone, create_model)
     from transmil_deepgraft_tpu_torch.train.losses import create_loss
     from transmil_deepgraft_tpu_torch.train.optimizers import (
         create_dtfd_optimizer, create_optimizer_from_config)
     from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from transmil_deepgraft_tpu_torch.utils.torch_weights import load_image_backbone_variables
 
     n_classes = int(cfg.Model.n_classes)
     in_features = int(cfg.Model.in_features or 2048)
@@ -124,18 +131,34 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         variant=str(cfg.Data.variant
                     or ("spatial" if model_name in SPATIAL_HEADS else "features")),
     )
+    if dm.variant == "images":
+        dm.eval_pad = "exact"  # image bags: bucketing to 2^k tiles wastes backbone compute
     if is_dtfd and dm.batch_size != 1:
         # DTFD takes one slide at a time (ref model_interface_dtfd.py:183)
         print(f"[cli] DTFD requires batch_size=1 (configured {dm.batch_size}); clamping")
         dm.batch_size = 1
+    backbone_name = str(cfg.Model.backbone or "features")
+    images = dm.variant == "images" and backbone_name != "features"
+
+    def head(in_f: int):
+        return create_model(model_name, n_classes=n_classes, in_features=in_f,
+                            out_features=out_features, device=dev,
+                            precision=cfg.General.precision or None,
+                            **_model_extras(cfg, model_name))
+
     # the initial weights come from the config's seed (JAX: key(seed)), drawn
     # on the CPU, without touching the caller's random state
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = create_model(model_name, n_classes=n_classes, in_features=in_features,
-                             out_features=out_features, device=dev,
-                             precision=cfg.General.precision or None,
-                             **_model_extras(cfg, model_name))
+        model = head(in_features)
+        if images:
+            # the backbone in the graph (ref model_interface.py:297-317): tiles
+            # stream through the frozen backbone into the head, rebuilt for
+            # the backbone's width (JAX cli/train.py:135-149)
+            backbone, feat_dim = create_backbone(backbone_name, out_features=out_features)
+            if feat_dim != in_features:
+                model = head(feat_dim)
+            model = ImageMILModel(backbone, model).to(dev)
     loss_fn = create_loss(str(cfg.Loss.base_loss or "CrossEntropyLoss"))
     grad_acc = int(cfg.General.grad_acc or 1)
     if is_dtfd:
@@ -162,8 +185,13 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
     cards = torch.cuda.device_count() if dev.type == "cuda" else 1
     if math.gcd(batch_size, cards) > 1:
         print(f"[cli] training on {dev} alone of {cards} cards (multi-GPU is ROADMAP A10)")
-    return Trainer(model, tx, dm, n_classes=n_classes, loss_fn=loss_fn, config=tcfg,
-                   model_name=model_name)
+    trainer = Trainer(model, tx, dm, n_classes=n_classes, loss_fn=loss_fn, config=tcfg,
+                      model_name=model_name)
+    if images and cfg.Model.backbone_weights:
+        # pretrained frozen-backbone weights (ref model_interface.py:237-267)
+        trainer.set_backbone_variables(
+            load_image_backbone_variables(str(cfg.Model.backbone_weights), backbone_name))
+    return trainer
 
 
 def main(argv: list[str] | None = None) -> dict:

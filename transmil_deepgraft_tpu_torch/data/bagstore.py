@@ -25,6 +25,7 @@ from typing import Sequence
 import numpy as np
 
 from transmil_deepgraft_tpu_torch.data import native_tiles
+from transmil_deepgraft_tpu_torch.utils import h5
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "bagstore.cpp"
 
@@ -77,19 +78,16 @@ def write_bagstore(
 
 def convert_h5_dir(h5_dir: str | Path, out_path: str | Path,
                    names: list[str] | None = None) -> tuple[Path, list[str]]:
-    """Pack a directory of per-slide ``.h5`` feature files into one store."""
-    import h5py
-
+    """Pack a directory of per-slide ``.h5`` feature files (read by
+    ``utils/h5``) into one store."""
     h5_dir = Path(h5_dir)
     files = sorted(h5_dir.glob("*.h5")) if names is None else [h5_dir / f"{n}.h5" for n in names]
     bags, coords, slide_names = [], [], []
     for f in files:
-        with h5py.File(f, "r") as h:
-            bags.append(np.asarray(h["features"][:], np.float32))
-            coords.append(
-                np.asarray(h["coords"][:], np.int32) if "coords" in h
-                else np.zeros((bags[-1].shape[0], 2), np.int32)
-            )
+        h = h5.read(f)
+        bags.append(np.asarray(h["features"], np.float32))
+        coords.append(np.asarray(h["coords"], np.int32) if "coords" in h
+                      else np.zeros((bags[-1].shape[0], 2), np.int32))
         slide_names.append(f.stem)
     return write_bagstore(out_path, bags, coords), slide_names
 

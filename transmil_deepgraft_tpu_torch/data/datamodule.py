@@ -15,9 +15,16 @@ whose train batches may come from the native bag store
 (:meth:`MILDataModule.enable_bagstore`); ``variant='spatial'`` (the CTMIL and
 ``resnet50`` heads) gives (B, 50, 50, D) feature volumes
 (:class:`~transmil_deepgraft_tpu_torch.data.local_features.LocalFeatureBagDataset`),
-without mixup, as JAX's. The other dataset variants (images, tiles,
-image_bags) and the Camelyon source are not ported yet (ROADMAP A6) and
-raise.
+without mixup, as JAX's; ``variant='images'`` gives bags of ImageNet-normalized
+tiles from ``BLOCKS/<slide>/*.jpg`` folders
+(:class:`~transmil_deepgraft_tpu_torch.data.jpg_bags.JPGMILDataset`, for a
+model with its backbone in the graph), ``'image_bags'`` the legacy HDF5/npy
+tile stacks in [-1, 1]
+(:class:`~transmil_deepgraft_tpu_torch.data.image_bags.ImageBagDataset`, padded
+with -1); ``dataset_name='camelyon'`` reads Camelyon16's fold CSVs and ``.pt``
+bags (:class:`~transmil_deepgraft_tpu_torch.data.camelyon.CamelyonDataset`),
+whatever the variant, as in JAX. The ``tiles`` variant (the classic per-tile
+models) is not ported yet (ROADMAP A8) and raises.
 """
 
 from __future__ import annotations
@@ -49,16 +56,19 @@ class Batch:
     padded_coords: np.ndarray | None = None
 
 
-def _pad_to(bag: np.ndarray, n: int) -> np.ndarray:
+def _pad_to(bag: np.ndarray, n: int, pad_value: float = 0.0) -> np.ndarray:
     if bag.shape[0] >= n:
         return bag[:n]
-    return np.concatenate([bag, np.zeros((n - bag.shape[0], *bag.shape[1:]), bag.dtype)], axis=0)
+    pad = np.full((n - bag.shape[0], *bag.shape[1:]), pad_value, bag.dtype)
+    return np.concatenate([bag, pad], axis=0)
 
 
-def collate(items: Sequence[tuple], eval_pad: str = "bucket") -> Batch:
+def collate(items: Sequence[tuple], eval_pad: str = "bucket", pad_value: float = 0.0) -> Batch:
     """Stack ``(bag, label, (name, coords, patient))`` items into a
-    :class:`Batch`, zero-padding bags to the longest (``'exact'``) or to its
-    bucket of ``DEFAULT_BUCKETS``."""
+    :class:`Batch`, padding bags to the longest (``'exact'``) or to its
+    bucket of ``DEFAULT_BUCKETS`` with ``pad_value``: the dataset's own pad
+    (0 for feature bags and ImageNet-normalized tiles, -1 for the legacy
+    image bags, whose black pad tiles normalize to -1)."""
     bags = [i[0] for i in items]
     lengths = np.array([b.shape[0] for b in bags], np.int32)
     max_len = int(lengths.max())
@@ -68,7 +78,8 @@ def collate(items: Sequence[tuple], eval_pad: str = "bucket") -> Batch:
     if all(c.ndim == 2 and c.shape[0] == b.shape[0] and c.shape[1] == 2 and c.any()
            for c, b in zip(coords, bags)):
         padded_coords = np.stack([normalize_pad_coords(c, target) for c in coords])
-    bags = np.stack([_pad_to(b, target) for b in bags]).astype(np.float32)
+    bags = np.stack([_pad_to(b, target, pad_value) for b in bags])
+    bags = bags.astype(np.float32, copy=False)
     return Batch(
         bags=bags,
         labels=np.array([i[1] for i in items], np.int32),
@@ -108,12 +119,10 @@ class MILDataModule:
                  fine_tune: bool = False, dataset_name: str = "custom", fold: int = 0,
                  variant: str = "features", mixed_res_dirs: list | None = None,
                  tile_size: int = 224, resample_val: bool = False) -> None:
-        if synthetic is None and dataset_name == "camelyon":
-            raise NotImplementedError("the Camelyon source is not ported yet (ROADMAP A6)")
-        if synthetic is None and variant not in ("features", "spatial"):
+        if synthetic is None and dataset_name != "camelyon" and variant == "tiles":
             raise NotImplementedError(
-                f"dataset variant {variant!r} is not ported yet (ROADMAP A6); "
-                "the port has 'features' and 'spatial'")
+                "dataset variant 'tiles' (the classic per-tile models) is not ported yet "
+                "(ROADMAP A8); the port has 'features', 'spatial', 'images' and 'image_bags'")
         self.data_dir = data_dir
         self.label_path = label_path
         self.n_classes = n_classes
@@ -131,7 +140,7 @@ class MILDataModule:
         self.fold = fold
         self.variant = variant
         self.mixed_res_dirs = mixed_res_dirs
-        self.tile_size = tile_size  # read by the image variants only
+        self.tile_size = tile_size  # read by the images variant only
         self.resample_val = resample_val  # the reference's val sampler (off by default)
         self._datasets: dict = {}
         self._bagstore = None
@@ -166,6 +175,11 @@ class MILDataModule:
             if mode in ("train", "fine_tune"):
                 return _TrainViewSynthetic(ds, self.max_bag_size)
             return _EvalViewSynthetic(ds)
+        if self.dataset_name == "camelyon":
+            from transmil_deepgraft_tpu_torch.data.camelyon import CamelyonDataset
+
+            return CamelyonDataset(self.data_dir, self.label_path, mode, fold=self.fold,
+                                   max_bag_size=self.max_bag_size)
         actual_mode = "fine_tune" if (mode == "train" and self.fine_tune) else mode
         if self.variant == "spatial":  # CTMIL / resnet50 (ref data_interface.py:166-177)
             from transmil_deepgraft_tpu_torch.data.local_features import LocalFeatureBagDataset
@@ -175,6 +189,18 @@ class MILDataModule:
                 slide_patient_path=self.slide_patient_path,
                 feature_extractor=self.feature_extractor,
             )
+        if self.variant == "image_bags":  # the legacy .hdf5/.npy/.zarr tile stacks
+            from transmil_deepgraft_tpu_torch.data.image_bags import ImageBagDataset
+
+            return ImageBagDataset(self.data_dir, self.label_path, actual_mode, self.n_classes,
+                                   slide_patient_path=self.slide_patient_path,
+                                   bag_size=self.max_bag_size)
+        if self.variant == "images":
+            from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset
+
+            return JPGMILDataset(self.data_dir, self.label_path, actual_mode, self.n_classes,
+                                 slide_patient_path=self.slide_patient_path,
+                                 max_bag_size=self.max_bag_size, tile_size=self.tile_size)
         return FeatureBagDataset(
             self.data_dir, self.label_path, actual_mode, self.n_classes,
             slide_patient_path=self.slide_patient_path, max_bag_size=self.max_bag_size,
@@ -200,7 +226,8 @@ class MILDataModule:
             return
         for start in range(0, len(order) - bs + 1, bs):
             items = [ds.get_item(int(i), rng) for i in order[start:start + bs]]
-            yield collate(items, eval_pad="exact")  # train bags are already fixed-size
+            # train bags are already fixed-size
+            yield collate(items, eval_pad="exact", pad_value=getattr(ds, "pad_value", 0.0))
 
     def _bagstore_batches(self, order: np.ndarray, rng: np.random.Generator) -> Iterator[Batch]:
         names, patients = self._bagstore_meta
@@ -228,7 +255,7 @@ class MILDataModule:
             order = ImbalancedSampler(ds.get_labels(), self.n_classes).sample_epoch(rng)
         for start in range(0, len(order), batch_size):
             items = [ds.get_item(int(i), rng) for i in order[start:start + batch_size]]
-            yield collate(items, eval_pad=self.eval_pad)
+            yield collate(items, eval_pad=self.eval_pad, pad_value=getattr(ds, "pad_value", 0.0))
 
     def steps_per_epoch(self) -> int:
         return len(self.dataset("train")) // self.batch_size

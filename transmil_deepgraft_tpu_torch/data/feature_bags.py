@@ -7,8 +7,8 @@
   extractor; ``fine_tune`` mode reads train + test_mixin;
 - a slide -> patient map JSON; slides absent from it are skipped;
 - per-slide files: ``.h5``/``.hdf5`` (``features`` (N, D), ``coords``
-  (N, 2)), ``.npy`` (features) or ``.pt`` (a features tensor). h5py and
-  zarr are imported only when such a file is read.
+  (N, 2); read by ``utils/h5``, no HDF5 library), ``.npy`` (features) or
+  ``.pt`` (a features tensor); zarr is imported only when a ``.zarr`` is read.
 
 Sampling, with every draw from an explicit ``numpy.random.Generator`` (the
 same draws as the JAX package, so the same seed gives the same bags):
@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from transmil_deepgraft_tpu_torch.data.coords import normalize_pad_coords
+from transmil_deepgraft_tpu_torch.utils import h5
 
 DEFAULT_FEATURE_TEMPLATE = "FEATURES_RETCCL_2048"
 
@@ -36,13 +37,9 @@ def load_bag_file(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix in (".h5", ".hdf5", ""):
-        import h5py
-
-        with h5py.File(path, "r") as f:
-            feats = np.asarray(f["features"][:], dtype=np.float32)
-            coords = (
-                np.asarray(f["coords"][:]) if "coords" in f else np.zeros((len(feats), 2), np.int32)
-            )
+        f = h5.read(path)
+        feats = np.asarray(f["features"], dtype=np.float32)
+        coords = f["coords"] if "coords" in f else np.zeros((len(feats), 2), np.int32)
         return feats, coords
     if suffix == ".npy":
         feats = np.load(path).astype(np.float32)

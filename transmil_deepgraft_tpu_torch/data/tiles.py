@@ -1,6 +1,6 @@
 """Tile files on disk: names, pixels, normalization (the port's copy of the
-pieces of ``data/jpg_bags.py`` and ``data/transforms.py`` that slide
-inference needs).
+file helpers of ``data/jpg_bags.py``; the normalization is
+``data/transforms.py``'s).
 
 Slides are folders of tile images named with the reference's ``(x-y)`` grid
 suffix (``tile_(12-7).jpg``). Tiles decode to raw uint8 RGB; ImageNet
@@ -15,8 +15,11 @@ from pathlib import Path
 
 import numpy as np
 
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+from transmil_deepgraft_tpu_torch.data.transforms import (  # noqa: F401  (re-exported)
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    imagenet_normalize,
+)
 
 COORD_RE = re.compile(r"\((\d+)-(\d+)\)")
 
@@ -37,8 +40,3 @@ def _load_tile(path: str | Path, size: int = 224) -> np.ndarray:
     if img.size != (size, size):
         img = img.resize((size, size))
     return np.asarray(img, np.uint8)
-
-
-def imagenet_normalize(img: np.ndarray) -> np.ndarray:
-    """uint8 HWC (or a batch of them) -> float32 ImageNet-normalized."""
-    return ((img.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD

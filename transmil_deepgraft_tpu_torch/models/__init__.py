@@ -3,7 +3,9 @@
 Every bag-level head of the JAX zoo (TransMIL, TransformerMIL, AttMIL,
 Chowder, RoFormerMIL, AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL)
 and the two heads over spatial feature volumes (CTMIL, ``resnet50``), the
-ResNet50 feature extractor and its int8 post-training-quantized form."""
+tile backbones (``models/backbones``: RetCCL ResNet50, the CLAM baseline,
+ResNet18, the simple CNN) with ``ImageMILModel``, which puts one in front of
+a head, and the ResNet50's int8 post-training-quantized form."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models.attmil import AttMIL
+from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, create_backbone
 from transmil_deepgraft_tpu_torch.models.chowder import Chowder
 from transmil_deepgraft_tpu_torch.models.clam import CLAM_MB, CLAM_SB
 from transmil_deepgraft_tpu_torch.models.ctmil import CTMIL
@@ -91,16 +94,18 @@ def create_model(name: str, n_classes: int, in_features: int = 2048,
 def head_logits(model: torch.nn.Module, *args: Any) -> torch.Tensor:
     """A head's logits on ``args`` (JAX ``serving._eval_forward``): DTFD's
     slide prediction; MDMIL asked for no attention row (its default), so
-    its TransLayers run fused at inference; the others' forward as it is."""
-    if isinstance(model, MDMIL):
+    its TransLayers run fused at inference; the others' forward as it is.
+    An ``ImageMILModel`` answers as its bag head."""
+    head = model.head if isinstance(model, ImageMILModel) else model
+    if isinstance(head, MDMIL):
         return model(*args, return_attn=False)
     out = model(*args)
-    return out[1] if isinstance(model, DTFDMIL) else out
+    return out[1] if isinstance(head, DTFDMIL) else out
 
 
 __all__ = [
-    "AttMIL", "CLAM_MB", "CLAM_SB", "CTMIL", "Chowder", "DSMIL", "DTFDMIL", "MDMIL",
-    "MODEL_REGISTRY", "MonaiMIL", "QResNet50", "ResNet", "RoFormerMIL", "SPATIAL_HEADS",
+    "AttMIL", "CLAM_MB", "CLAM_SB", "CTMIL", "Chowder", "DSMIL", "DTFDMIL", "ImageMILModel",
+    "MDMIL", "MODEL_REGISTRY", "MonaiMIL", "QResNet50", "ResNet", "RoFormerMIL", "SPATIAL_HEADS",
     "SpatialResNetMIL", "TransMIL", "TransMILAttention", "TransformerMIL", "apply_qresnet50",
-    "build_qresnet50", "create_model", "head_logits", "resnet50", "resnet50_baseline",
+    "build_qresnet50", "create_backbone", "create_model", "head_logits", "resnet50", "resnet50_baseline",
 ]

@@ -1,17 +1,20 @@
-"""ResNet50 in feature mode (port of ``models/resnet.py``).
+"""ResNets in feature mode (port of ``models/resnet.py``).
 
-The RetCCL ResNet50 (2048-d pooled features), the CLAM baseline truncated
-after layer3 (1024-d), and with ``in_channels`` the spatial ResNet50 MIL head's
-trunk (``models/spatial_resnet.py``). BatchNorm is :class:`BatchNorm2d`: the
-running statistics in eval mode, flax's train-mode rule otherwise. Inputs are
-NHWC, as in the JAX package; the convolutions run in NCHW (a channels-last
-view of the same memory). Module names follow the flax module names
-(``conv1``, ``bn1``, ``layer1_0.conv1``, ``layer2_0.downsample_conv``, ...),
-so :func:`~transmil_deepgraft_tpu_torch.utils.jax_params.resnet_state_dict_from_jax`
+The RetCCL ResNet50 (2048-d pooled features, ``retccl_resnet50``), the CLAM
+baseline truncated after layer3 (1024-d), ResNet18 (512-d, the
+``resnet18`` backbone of ``models/backbones``), and with ``in_channels`` the
+spatial ResNet50 MIL head's trunk (``models/spatial_resnet.py``). BatchNorm
+is :class:`BatchNorm2d`: the running statistics in eval mode, flax's
+train-mode rule otherwise. Inputs are NHWC, as in the JAX package; the
+convolutions run in NCHW (a channels-last view of the same memory). Module
+names follow the flax module names (``conv1``, ``bn1``, ``layer1_0.conv1``,
+``layer2_0.downsample_conv``, ...), so
+:func:`~transmil_deepgraft_tpu_torch.utils.jax_params.resnet_state_dict_from_jax`
 maps the flax variables one to one.
 
-The slide pipeline uses it for its bf16 route (``calib_tiles=None``), and the
-int8 backbone is held to it as the float yardstick.
+The slide pipeline uses the ResNet50 for its bf16 route (``calib_tiles=None``),
+feature extraction for its float32 route, and the int8 backbone is held to
+it as the float yardstick.
 """
 
 from __future__ import annotations
@@ -60,6 +63,28 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, momentum=0.9)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 downsample: bool = False) -> None:
+        super().__init__()
+        self.conv1, self.bn1 = _conv(in_planes, planes, 3, stride), _bn(planes)
+        self.conv2, self.bn2 = _conv(planes, planes, 3), _bn(planes)
+        self.downsample = downsample
+        if downsample:
+            self.downsample_conv = _conv(in_planes, planes, 1, stride)
+            self.downsample_bn = _bn(planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
 
 
 class Bottleneck(nn.Module):
@@ -119,8 +144,18 @@ class ResNet(nn.Module):
         return out.mean(dim=(2, 3))
 
 
+def resnet18() -> ResNet:
+    return ResNet(BasicBlock, (2, 2, 2, 2))
+
+
 def resnet50(truncate_after: int = 4) -> ResNet:
     return ResNet(Bottleneck, (3, 4, 6, 3), truncate_after=truncate_after)
+
+
+def retccl_resnet50() -> ResNet:
+    """The RetCCL feature extractor: ResNet50 in feature mode (2048-d); its
+    trained weights convert from ``retccl_best_ckpt.pth``."""
+    return resnet50()
 
 
 def resnet50_baseline() -> ResNet:

@@ -53,7 +53,8 @@ def _f32_pow(base: float, count: int) -> np.float32:
 
 class Optimizer:
     """One optimizer of :func:`create_optimizer`: ``init(params)`` once,
-    then ``step()`` after each micro-step's backward (it reads ``p.grad``)."""
+    then ``step()`` after each micro-step's backward (it reads ``p.grad``;
+    None is a zero gradient, on which weight decay still acts)."""
 
     def __init__(self, rule: str, lr: float, weight_decay: float, betas: tuple[float, float],
                  eps: float, momentum: float, lookahead: bool, grad_accum_steps: int) -> None:
@@ -89,7 +90,10 @@ class Optimizer:
         completed an accumulation and the parameters moved."""
         n = self.mini_step
         for acc, p in zip(self.acc, self.params):
-            acc.add_((p.grad - acc) / (n + 1))  # optax.MultiSteps' running mean
+            # optax.MultiSteps' running mean; a parameter the loss does not
+            # reach (a frozen backbone) has the zero gradient JAX gives it
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            acc.add_((g - acc) / (n + 1))
         if n < self.grad_accum_steps - 1:
             self.mini_step += 1
             return False

@@ -9,6 +9,14 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
 - the forward is the head's own: a coord-aware head (RoFormerMIL) gets
   ``Batch.padded_coords`` as its second argument, or the square-grid
   fallback when the batch has none, as the JAX Trainer stages them;
+- an ``ImageMILModel`` (the ``images`` variant) streams the tiles through its
+  frozen backbone; :meth:`Trainer.set_backbone_variables` loads pretrained
+  backbone weights. As in JAX, the backbone's parameters are in the
+  optimizer with zero gradients, so coupled L2 weight decay still moves its
+  conv kernels (ROADMAP C11);
+- batches are produced, and copied to the device from pinned memory on a
+  side stream, by a prefetch thread up to ``prefetch_batches`` (at least
+  1) ahead (``data/pipeline.device_prefetch``);
 - DTFD (``model_name`` DTFD/DTFDMIL, with ``create_dtfd_optimizer``): the
   loss is ``(slide loss + the pseudo-bags' loss against the slide's label) /
   2`` (ref ``model_interface_dtfd.py:268``), eval takes the slide logits,
@@ -37,7 +45,7 @@ Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 of the JAX Trainer.
 
 Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
-attention tile export, tile-level aggregation, meshes and prefetch threads.
+attention tile export, tile-level aggregation and meshes.
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ import torch
 import torch.nn.functional as F
 
 from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
+from transmil_deepgraft_tpu_torch.data.pipeline import device_prefetch, to_device
 from transmil_deepgraft_tpu_torch.models import head_logits
+from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, ProjectedBackbone
 from transmil_deepgraft_tpu_torch.models.dtfd import PseudoBagShuffle
 from transmil_deepgraft_tpu_torch.models.layers import Dropout
 from transmil_deepgraft_tpu_torch.train.aggregation import aggregate_patients
@@ -66,7 +76,7 @@ from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_rep
 from transmil_deepgraft_tpu_torch.train.optimizers import Optimizer
 from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager, read_checkpoint
 from transmil_deepgraft_tpu_torch.utils.jax_params import (
-    head_state_dict_from_jax, optimizer_state_from_jax)
+    backbone_state_dict_from_jax, head_state_dict_from_jax, optimizer_state_from_jax)
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
 # Class names per task (ref ``code/utils/utils.py:37-53``), for the result CSVs.
@@ -88,8 +98,10 @@ LABEL_MAP: dict[str, dict[str, str]] = {
 @dataclass
 class TrainerConfig:
     """The JAX Trainer's fields and defaults. ``autosave_async``,
-    ``prefetch_batches``, ``eval_fn_cache``, ``epoch_figures`` and
-    ``export_topk_tiles`` have no effect in the port; ``swa``,
+    ``eval_fn_cache``, ``epoch_figures`` and
+    ``export_topk_tiles`` have no effect in the port; ``prefetch_batches``
+    is the prefetch thread's depth, and 0 counts as 1 (the port always
+    stages batches on that thread); ``swa``,
     ``autosave_steps``, ``use_tensorboard``, ``tile_level`` and
     ``ckpt_backend='orbax'`` are refused (not ported yet, ROADMAP A5).
     Checkpoints are ``torch.save`` files whatever ``ckpt_backend`` says."""
@@ -232,16 +244,41 @@ class Trainer:
         self.tx.step()
         return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
 
+    def _batch_arrays(self, batch) -> tuple:
+        """(bags, int64 labels, coords) of a batch, numpy: the (B, N, 2)
+        padded coords for a coord-aware head, else None (also when the bags
+        carry none)."""
+        coords = batch.padded_coords if self.coord_aware else None
+        return batch.bags, np.asarray(batch.labels, np.int64), coords
+
     def _batch_tensors(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        bags = torch.from_numpy(batch.bags).to(self.device)
-        return bags, torch.as_tensor(batch.labels, dtype=torch.long, device=self.device)
+        return to_device(self._batch_arrays(batch)[:2], self.device)
 
     def _batch_coords(self, batch) -> Optional[torch.Tensor]:
-        """The batch's (B, N, 2) padded coords on the device, for a
-        coord-aware head (None otherwise, or when the bags carry none)."""
-        if not self.coord_aware or batch.padded_coords is None:
-            return None
-        return torch.from_numpy(batch.padded_coords).to(self.device)
+        return to_device(self._batch_arrays(batch)[2:], self.device)[0]
+
+    def _staged(self, batches):
+        """(batch, bags, labels, coords) with the tensors on the device: a
+        thread makes the batches and copies them up to ``prefetch_batches``
+        (at least 1) ahead of the step (JAX ``_staged_batches``)."""
+        return device_prefetch(batches, self.device, self._batch_arrays,
+                               max(1, self.cfg.prefetch_batches))
+
+    def set_backbone_variables(self, variables: dict) -> None:
+        """Load pretrained weights (flax-layout ``{'params', 'batch_stats'}``,
+        e.g. ``utils/torch_weights.load_image_backbone_variables``) into the
+        frozen backbone of an ``ImageMILModel`` (JAX ``train/trainer.py:
+        270-301``). Raw ResNet weights for a ``ProjectedBackbone`` go into its
+        inner ResNet and keep the projection; weights of stages the backbone
+        does not have are ignored."""
+        if not isinstance(self.model, ImageMILModel):
+            raise ValueError("model has no in-graph 'backbone' submodule")
+        backbone = self.model.backbone
+        if isinstance(backbone, ProjectedBackbone) and "proj" not in variables["params"]:
+            backbone = backbone.backbone
+        own = backbone.state_dict()
+        backbone.load_state_dict({k: v for k, v in backbone_state_dict_from_jax(variables).items()
+                                  if k in own})
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> dict[str, float]:
@@ -305,9 +342,9 @@ class Trainer:
                               (self.shuffle_generator, self.cfg.seed + 2)):
                 gen.manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
-            for step, batch in enumerate(self.dm.train_batches(epoch)):
-                loss, probs = self.train_step(*self._batch_tensors(batch),
-                                              self._batch_coords(batch))
+            for step, (batch, bags, labels, coords) in enumerate(
+                    self._staged(self.dm.train_batches(epoch))):
+                loss, probs = self.train_step(bags, labels, coords)
                 losses.append(loss)
                 train_probs.append(probs)
                 train_labels.append(batch.labels)
@@ -371,7 +408,8 @@ class Trainer:
     def _in_features(self) -> int:
         """The head's input width: the in_features of its first Linear or
         Conv1d (the fc1 MLP, Chowder's scorer, MONAI's ``myfc``)."""
-        for m in self.model.modules():
+        head = self.model.head if isinstance(self.model, ImageMILModel) else self.model
+        for m in head.modules():
             if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)):
                 return m.in_features if isinstance(m, torch.nn.Linear) else m.in_channels
         raise ValueError("the model has no Linear layer")
@@ -418,8 +456,9 @@ class Trainer:
         all_probs, all_logits, all_labels, names, patients = [], [], [], [], []
         self.model.eval()
         with torch.inference_mode():
-            for batch in self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size):
-                logits = self.forward(self._batch_tensors(batch)[0], self._batch_coords(batch))
+            for batch, bags, _, coords in self._staged(
+                    self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size)):
+                logits = self.forward(bags, coords)
                 all_probs.append(torch.softmax(logits, dim=-1).cpu().numpy())
                 all_logits.append(logits.cpu().numpy())
                 all_labels.append(batch.labels)

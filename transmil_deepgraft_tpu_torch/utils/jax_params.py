@@ -13,8 +13,9 @@ The other heads (:func:`head_state_dict_from_jax`): one table a head,
 statistics are ``batch_stats`` leaves); ``utils/torch_weights`` reads the
 same tables backwards for the reference's ``.pth`` converters.
 
-ResNet (:func:`resnet_state_dict_from_jax`) and the int8 ResNet50
-(:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
+ResNet (:func:`resnet_state_dict_from_jax`), the tile backbones of
+``models/backbones`` (:func:`backbone_state_dict_from_jax`) and the int8
+ResNet50 (:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
 the optax state of ``create_optimizer`` (moments, slow weights, counters, the
 gradient accumulator and the plateau scale) onto the port's optimizer, and
 that of ``create_dtfd_optimizer`` (two masked Adams) onto its
@@ -369,6 +370,64 @@ def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
     return out
+
+
+def backbone_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax variables of a tile backbone of ``models/backbones`` -> the port
+    module's ``state_dict``, by the tree's shape: a ``ProjectedBackbone``
+    (``resnet18``: the ResNet under ``backbone``, a Dense ``proj``, JAX
+    ``train/trainer.py:288-296``), the ``SimpleCNN`` (``conv1``, ``conv2``
+    with biases and the ``fc`` Dense, whose input is flattened in (H, W, C)
+    order on both sides), or a bare ResNet."""
+    params = variables["params"]
+    if "proj" in params:
+        inner = resnet_state_dict_from_jax({"params": params["backbone"],
+                                            "batch_stats": variables["batch_stats"]["backbone"]})
+        sd = {f"backbone.{k}": v for k, v in inner.items()}
+        sd["proj.weight"] = torch.from_numpy(np.array(params["proj"]["kernel"], np.float32).T)
+        sd["proj.bias"] = torch.from_numpy(np.array(params["proj"]["bias"], np.float32))
+        return sd
+    if "fc" in params:
+        sd = {}
+        for conv in ("conv1", "conv2"):
+            sd[f"{conv}.weight"] = np.asarray(params[conv]["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{conv}.bias"] = np.asarray(params[conv]["bias"])
+        sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
+        sd["fc.bias"] = np.asarray(params["fc"]["bias"])
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return resnet_state_dict_from_jax(variables)
+
+
+def variables_from_module(module: torch.nn.Module) -> dict:
+    """The inverse of :func:`backbone_state_dict_from_jax`: a tile
+    backbone's weights -> flax-layout ``{'params', 'batch_stats'}`` (numpy),
+    the form ``models/resnet_int8.build_qresnet50`` takes. Conv kernels
+    become HWIO, Linear weights (in, out), BatchNorm weight/bias/running
+    statistics scale/bias and batch_stats mean/var."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list[str], leaf: str, t: torch.Tensor) -> None:
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
+
+    for name, m in module.named_modules():
+        path = name.split(".")
+        if isinstance(m, torch.nn.Conv2d):
+            put(params, path, "kernel", m.weight.permute(2, 3, 1, 0))
+        elif isinstance(m, torch.nn.Linear):
+            put(params, path, "kernel", m.weight.t())
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            put(params, path, "scale", m.weight)
+            put(stats, path, "mean", m.running_mean)
+            put(stats, path, "var", m.running_var)
+        else:
+            continue
+        if m.bias is not None:
+            put(params, path, "bias", m.bias)
+    return {"params": params, "batch_stats": stats}
 
 
 def qresnet_from_jax(q: Any):

@@ -373,3 +373,16 @@ def load_backbone_variables(path: str | Path) -> dict:
     if isinstance(tree, dict) and "params" in tree and "batch_stats" in tree:
         return tree
     raise ValueError(f"unrecognized backbone checkpoint structure in {path}")
+
+
+def load_image_backbone_variables(path: str | Path, backbone_name: str) -> dict:
+    """A tile backbone's weights for the ``images`` variant (JAX
+    ``cli/train.py`` ``_load_backbone_variables``): a torch ``.pth``/``.pt``
+    ResNet state dict for 'retccl', 'resnet50' or 'resnet18' ->
+    flax-layout ``{'params', 'batch_stats'}``, or a flax msgpack variables
+    tree as it is."""
+    if str(path).endswith((".pth", ".pt")):
+        if backbone_name not in ("retccl", "resnet50", "resnet18"):
+            raise ValueError(f"no torch converter for backbone {backbone_name!r}")
+        return convert_resnet_state_dict(load_torch_checkpoint(str(path)))
+    return read_flax_msgpack(Path(path).read_bytes())
