@@ -93,7 +93,19 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    DTFDMIL_resnet50_tcmr_viral.yaml (two tier-wise Adams, batch 1),
    CTMIL_feat_norm_rest.yaml and Resnet50_feat_norm_rest.yaml (the spatial
    variant's volumes) as written but for paths and 2 epochs, with exact
-   K1/K2 counts and the optimizer step at each config's batch.
+   K1/K2 counts and the optimizer step at each config's batch;
+13. from tile files to feature bags and image bags (``phase_extract``):
+   ``cli.extract_features`` of 8 slides of JPEG tiles on the float32 and
+   int8 routes, B7/B8 at extraction's batch, and ``cli.train`` on the
+   extracted cohort and with ``Data.variant: images``;
+14. the other tile backbones (``phase_backbones``): ViT-B/16 (at 224 and
+   256 px), EfficientNet-B0 + its GELU projection, InceptionV3 at 299 px,
+   ResNet34 and the projected ResNet18 timed at 100 tiles beside their
+   FLOP-rate bound and held to float64 on the CPU; ``cli.extract_features
+   --backbone dino|efficientnet`` from .pth files in the reference's names;
+   ``cli.train`` of TransMIL_dino.yaml on the ``images`` variant (exact
+   K1/K2 counts, logits held to the plain route); the classic per-tile route
+   (``Data.variant: tiles``) for vit, resnet18, efficientnet and inception.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -225,6 +237,22 @@ EXTRACT_SPLITS = {"train": 5, "val": 2, "test": 1}  # one train batch of the con
 # 1,000; 10 train slides make two batches of 5, one grad_acc-2 optimizer step
 IMAGE_SPLITS = {"train": 10, "val": 4, "test": 4}
 IMAGE_TILES = 200
+# phase 14 (the other tile backbones): (name, tile size) of each backbone
+# timed at extraction's batch of 100 tiles, 4 of them held to float64 on the CPU
+BACKBONES = (("dino", 224), ("dino", 256), ("efficientnet", 224), ("inception", 299),
+             ("resnet34", 224), ("resnet18", 224))
+HELD_TILES = 4
+HELD_TOL = 1e-3  # relative to the largest feature, float32 on the card vs float64
+BACKBONE_EXTRACT = ("dino", "efficientnet")
+BACKBONE_SPLITS = {"train": 6, "val": 2, "test": 2}
+DINO_CONFIG = "DeepGraft/TransMIL_dino.yaml"
+CLASSIC_CONFIGS = {"vit": "DeepGraft/Vit_classic_norm_rest.yaml",
+                   "resnet18": "DeepGraft/Resnet18_classic_norm_rest.yaml",
+                   "efficientnet": "DeepGraft/EfficientNet_classic_norm_rest.yaml",
+                   "inception": "DeepGraft/Inception_norm_rest.yaml"}
+CLASSIC_TILES = 64  # tiles a slide, and the train batch (the ViT config's 3,000 do not fit)
+CLASSIC_HEAD = "AttMIL"  # a bag head in Model.name: the tiles route JAX can run (ROADMAP C13)
+CLASSIC_HELD = 8  # tiles of the first step held to float64 on the CPU
 
 
 def log(msg: str) -> None:
@@ -2270,9 +2298,9 @@ def phase_zoo(rng, results: dict, dev) -> None:
         f"{name} {s:.1f} s" for name, s in parts.items()))
 
 
-def jpeg_pool(rng, n: int = TILE_POOL) -> list[bytes]:
-    """``n`` seeded 224x224 JPEG tiles: crops of a smooth random texture with
-    noise (about the size and decode cost of a tissue tile)."""
+def jpeg_pool(rng, n: int = TILE_POOL, size: int = TILE) -> list[bytes]:
+    """``n`` seeded ``size`` x ``size`` JPEG tiles: crops of a smooth random
+    texture with noise (about the size and decode cost of a tissue tile)."""
     import io
 
     import numpy as np
@@ -2282,9 +2310,9 @@ def jpeg_pool(rng, n: int = TILE_POOL) -> list[bytes]:
     tex = np.asarray(Image.fromarray(small).resize((2048, 2048), Image.BICUBIC), np.int16)
     tex = (tex + rng.integers(-12, 13, tex.shape)).clip(0, 255).astype(np.uint8)
     pool = []
-    for y, x in rng.integers(0, 2048 - TILE, (n, 2)):
+    for y, x in rng.integers(0, 2048 - size, (n, 2)):
         buf = io.BytesIO()
-        Image.fromarray(tex[y:y + TILE, x:x + TILE]).save(buf, format="JPEG", quality=90)
+        Image.fromarray(tex[y:y + size, x:x + size]).save(buf, format="JPEG", quality=90)
         pool.append(buf.getvalue())
     return pool
 
@@ -2300,6 +2328,60 @@ def write_slides(root: Path, rng, pool: list[bytes], counts: dict) -> int:
             (folder / f"tile_({t % 32}-{t // 32}).jpg").write_bytes(pool[k])
             total += len(pool[k])
     return total
+
+
+def prefetched_step_parts(trainer, tag: str, label: str) -> None:
+    """One epoch's optimizer steps as the Trainer runs them: the prefetch
+    thread decodes a batch (JPEG decode, normalize, pad, collate) and copies
+    it, pinned, on a side stream, while the device steps on the one before.
+    Decode is timed on the thread, the device in the loop; what the wall
+    time falls short of decode + copy + device is what the thread hid."""
+    import torch
+
+    from transmil_deepgraft_tpu_torch.data.pipeline import to_device
+
+    dev = trainer.device
+    spent = {"decode": 0.0, "device": 0.0}
+
+    def timed(batches):  # runs on the prefetch thread
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            spent["decode"] += time.perf_counter() - t0
+            if b is None:
+                return
+            yield b
+
+    trainer.model.train()
+    trainer.tx.init(trainer.model)
+    sync(dev)
+    t_step = time.perf_counter()
+    for batch, bags, labels, _ in trainer._staged(timed(trainer.dm.train_batches(0))):
+        t0 = time.perf_counter()
+        trainer.train_step(bags, labels)
+        sync(dev)
+        spent["device"] += time.perf_counter() - t0
+    wall = time.perf_counter() - t_step
+    del bags, labels
+    # the last batch's copy, pageable (in the loop) and pinned on a side stream (the thread)
+    t0 = time.perf_counter()
+    trainer._batch_tensors(batch)
+    sync(dev)
+    pageable = time.perf_counter() - t0
+    stream = torch.cuda.Stream(dev)
+    t0 = time.perf_counter()
+    to_device(trainer._batch_arrays(batch)[:2], dev, stream)
+    stream.synchronize()
+    pinned = time.perf_counter() - t0
+    acc = trainer.tx.grad_accum_steps
+    parts = spent["decode"] + acc * pinned + spent["device"]
+    log(f"[{tag}] {label} ({acc} micro-steps of {tuple(batch.bags.shape)} "
+        f"float32 tiles) through the Trainer's prefetch thread: {wall * 1e3:.1f} ms; "
+        f"decode {spent['decode'] * 1e3:.1f} ms on the thread + pinned side-stream copy "
+        f"{pinned * 1e3:.1f} a batch (pageable {pageable * 1e3:.1f}) + device (forward, "
+        f"backward, update) {spent['device'] * 1e3:.1f} ms = {parts * 1e3:.1f} ms, "
+        f"{(parts - wall) * 1e3:.1f} ms ({(parts - wall) / parts:.1%}) hidden")
 
 
 def phase_extract(rng, results: dict, dev, variables) -> None:
@@ -2332,7 +2414,6 @@ def phase_extract(rng, results: dict, dev, variables) -> None:
     from transmil_deepgraft_tpu_torch.data.bagstore import BagStore
     from transmil_deepgraft_tpu_torch.data.feature_bags import FeatureBagDataset
     from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset
-    from transmil_deepgraft_tpu_torch.data.pipeline import to_device
     from transmil_deepgraft_tpu_torch.data.tiles import parse_coords
     from transmil_deepgraft_tpu_torch.models import resnet_int8 as qr
     from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
@@ -2597,53 +2678,367 @@ def phase_extract(rng, results: dict, dev, variables) -> None:
             raise AssertionError("the images model's kernel route disagrees with the plain route")
 
         # B's optimizer step (grad_acc 2 micro-steps of 5 x 1,000 tiles) as the
-        # Trainer runs it: the prefetch thread decodes a batch (JPEG decode,
-        # normalize, pad, collate) and copies it, pinned, on a side stream,
-        # while the device steps on the one before. Decode is timed on the
-        # thread, the device in the loop; what the wall time falls short of
-        # decode + copy + device is what the thread hid.
-        spent = {"decode": 0.0, "device": 0.0}
-
-        def timed(batches):  # runs on the prefetch thread
-            it = iter(batches)
-            while True:
-                t0 = time.perf_counter()
-                b = next(it, None)
-                spent["decode"] += time.perf_counter() - t0
-                if b is None:
-                    return
-                yield b
-
-        probe.model.train()
-        probe.tx.init(probe.model)
-        sync(dev)
-        t_step = time.perf_counter()
-        for batch, bags, labels, _ in probe._staged(timed(probe.dm.train_batches(0))):
-            t0 = time.perf_counter()
-            probe.train_step(bags, labels)
-            sync(dev)
-            spent["device"] += time.perf_counter() - t0
-        wall = time.perf_counter() - t_step
-        del bags, labels
-        # the last batch's copy, pageable (in the loop) and pinned on a side stream (the thread)
-        t0 = time.perf_counter()
-        probe._batch_tensors(batch)
-        sync(dev)
-        pageable = time.perf_counter() - t0
-        stream = torch.cuda.Stream(dev)
-        t0 = time.perf_counter()
-        to_device(probe._batch_arrays(batch)[:2], dev, stream)
-        stream.synchronize()
-        pinned = time.perf_counter() - t0
-        acc = probe.tx.grad_accum_steps
-        parts = spent["decode"] + acc * pinned + spent["device"]
-        log(f"[extract] B's optimizer step ({acc} micro-steps of {tuple(batch.bags.shape)} "
-            f"float32 tiles) through the Trainer's prefetch thread: {wall * 1e3:.1f} ms; "
-            f"decode {spent['decode'] * 1e3:.1f} ms on the thread + pinned side-stream copy "
-            f"{pinned * 1e3:.1f} a batch (pageable {pageable * 1e3:.1f}) + device (forward, "
-            f"backward, update) {spent['device'] * 1e3:.1f} ms = {parts * 1e3:.1f} ms, "
-            f"{(parts - wall) * 1e3:.1f} ms ({(parts - wall) / parts:.1%}) hidden")
+        # Trainer runs it
+        prefetched_step_parts(probe, "extract", "B's optimizer step")
     log(f"[env] extract phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def backbone_module(name: str, seed: int):
+    """A tile backbone of ``models/backbones`` ('resnet34': the bare
+    ResNet34) from ``torch.manual_seed(seed)`` on the CPU, its BatchNorm
+    running statistics drawn too, in eval mode."""
+    import torch
+
+    from transmil_deepgraft_tpu_torch.models.backbones import create_backbone
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet34
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        module = resnet34() if name == "resnet34" else create_backbone(name)[0]
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.05)
+                m.running_var.uniform_(0.8, 1.2)
+    return module.eval()
+
+
+def dino_state_dict(vit) -> dict:
+    """The port's ViT -> a state dict in DINO/timm's names (the inverse of
+    ``utils/torch_weights.convert_vit_state_dict``)."""
+    sub = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    out = {}
+    for key, value in vit.state_dict().items():
+        if key.startswith("block"):
+            block, mod, leaf = key.split(".")
+            key = f"blocks.{block[5:]}.{sub.get(mod, mod)}.{leaf}"
+        elif key.startswith("patch_embed."):
+            key = "patch_embed.proj." + key.split(".", 1)[1]
+        out[key] = value
+    return out
+
+
+def torchvision_efficientnet_state_dict(net) -> dict:
+    """The port's EfficientNet-B0 -> a state dict in torchvision's names
+    (the inverse of ``utils/torch_weights.convert_efficientnet_state_dict``)."""
+    from transmil_deepgraft_tpu_torch.models.efficientnet import B0_STAGES
+
+    names = {"stem_conv": "features.0.0", "stem_bn": "features.0.1",
+             "head_conv": "features.8.0", "head_bn": "features.8.1"}
+    for si, (expand, _, _, _, repeats) in enumerate(B0_STAGES):
+        for b in range(repeats):
+            t, f = f"features.{si + 1}.{b}.block", f"stage{si}_block{b}"
+            i = 0
+            if expand != 1:
+                names.update({f"{f}.expand_conv": f"{t}.0.0", f"{f}.expand_bn": f"{t}.0.1"})
+                i = 1
+            names.update({f"{f}.dw_conv": f"{t}.{i}.0", f"{f}.dw_bn": f"{t}.{i}.1",
+                          f"{f}.se.reduce": f"{t}.{i + 1}.fc1",
+                          f"{f}.se.expand": f"{t}.{i + 1}.fc2",
+                          f"{f}.project_conv": f"{t}.{i + 2}.0",
+                          f"{f}.project_bn": f"{t}.{i + 2}.1"})
+    out = {}
+    for key, value in net.state_dict().items():
+        module, leaf = key.rsplit(".", 1)
+        out[f"{names[module]}.{leaf}"] = value
+    return out
+
+
+def slide_auroc(result_csv: Path) -> float:
+    """The AUROC of a ``*_RESULT_SLIDE.csv``'s aggregated slide scores."""
+    import csv
+
+    import numpy as np
+
+    from transmil_deepgraft_tpu_torch.train.metrics import auroc
+
+    with open(result_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    classes = [k for k in rows[0] if k not in ("", "SLIDE", "yTrue")]
+    probs = np.array([[float(r[c]) for c in classes] for r in rows])
+    return auroc(probs, np.array([int(r["yTrue"]) for r in rows]), len(classes))
+
+
+def phase_backbones(rng, results: dict, dev) -> None:
+    """The other tile backbones, on the card, through the port's entry
+    points, from seeded random weights:
+
+    (a) ViT-B/16 (dino, at 224 px and at 256 px, where the position grid is
+    resized on the card), EfficientNet-B0 behind its 512-d GELU projection,
+    InceptionV3 at 299 px, ResNet34 and the projected ResNet18, each timed on
+    a batch of 100 tiles (CUDA events) beside its FLOP-rate bound, 4 of the
+    tiles held to the same module on the CPU in float64;
+    (b) ``cli.extract_features --backbone dino`` and ``efficientnet`` from
+    seeded .pth files in the reference's names on two slides of 450-550 JPEG
+    tiles: the .h5 features read back with ``utils/h5`` and held to the
+    in-process backbone on the CLI's first batch within 1e-5, tiles/s;
+    (c) ``cli.train`` of ``TransMIL_dino.yaml`` with ``Data.variant: images``
+    (as written but for paths and 1 epoch; 6/2/2 slides of 200 tiles, the
+    DINO .pth as ``Model.backbone_weights``, the head rebuilt at 768-d):
+    exact K1/K2 counts, 2 each an eval forward; the eval logits against the
+    all-plain route within the bf16 bar; the optimizer step by part;
+    (d) the classic per-tile route, ``Data.variant: tiles``, for vit,
+    resnet18, efficientnet and inception with the fields of their configs:
+    each config as written raises JAX's KeyError (ROADMAP C13); cut to paths,
+    1 epoch, ``Model.name`` a bag head, a train batch of 64 tiles, 6/2/2
+    slides of 64 tiles (299 px for inception): tile-level slide and patient
+    AUROC, ms a step, tiles/s; the BatchNorm backbones' running statistics
+    moved (the ViT has none); the first step's loss at 8 tiles held to the
+    CPU in float64 (vit, resnet18)."""
+    import copy
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from transmil_deepgraft_tpu_torch.cli import extract_features as cli_extract
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.data import feature_extractor as fe
+    from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset
+    from transmil_deepgraft_tpu_torch.models.backbones import (
+        create_backbone, load_backbone_variables)
+    from transmil_deepgraft_tpu_torch.models.vit import _interpolate_pos_embed
+    from transmil_deepgraft_tpu_torch.utils import h5
+    from transmil_deepgraft_tpu_torch.utils.checkpoints import read_checkpoint
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+    from transmil_deepgraft_tpu_torch.utils.torch_weights import convert_backbone_state_dict
+
+    t_phase = time.perf_counter()
+    device_arg = [] if dev.type == "cuda" else ["--device", dev.type]  # the CLIs' default: cuda
+    # (a) each backbone at extraction's batch of 100 tiles
+    modules: dict = {}
+    for name, size in BACKBONES:
+        if name not in modules:
+            modules[name] = backbone_module(name, seed=len(modules)).to(dev)
+        net = modules[name]
+        x = torch.from_numpy(rng.standard_normal((EXTRACT_BATCH, size, size, 3),
+                                                 dtype=np.float32)).to(dev)
+        with torch.inference_mode():
+            with FlopCounterMode(display=False) as counter:
+                out = net(x)
+            flops = counter.get_total_flops()
+            ms = cuda_ms(lambda: net(x), reps=5)
+        nbytes = 4 * (x.numel() + out.numel() + sum(p.numel() for p in net.parameters()))
+        bound_ms, by = bound(flops, nbytes)
+        ref = copy.deepcopy(net).cpu().double()
+        with torch.no_grad():
+            want = ref(x[:HELD_TILES].cpu().double())
+        del ref
+        err = float((out[:HELD_TILES].cpu().double() - want).abs().max()
+                    / want.abs().max().clamp_min(1.0))
+        log(f"[backbones] {name} at {size} px, {EXTRACT_BATCH} tiles -> {tuple(out.shape)}: "
+            f"{ms:.2f} ms = {EXTRACT_BATCH / ms * 1e3:.0f} tiles/s; {flops / EXTRACT_BATCH / 1e9:.2f} "
+            f"GFLOP a tile, bound {bound_ms:.2f} ms by {by} (float32 peak, TF32 off) = "
+            f"{EXTRACT_BATCH / bound_ms * 1e3:.0f} tiles/s, {bound_ms / ms:.1%} of it; "
+            f"{HELD_TILES} tiles vs float64 on the CPU: max |d| {err:.2e} of the largest "
+            f"(tol {HELD_TOL})")
+        if not (np.isfinite(out.cpu().numpy()).all() and err <= HELD_TOL):
+            raise AssertionError(f"{name} at {size} px: the card disagrees with float64")
+        if name == "dino" and size != 224:  # the bicubic resize ran on the card
+            grid = size // 16
+            with torch.no_grad():
+                pos = net.pos_embed[:, 1:]
+                card = _interpolate_pos_embed(pos, grid, grid)
+                cpu = _interpolate_pos_embed(pos.cpu().double(), grid, grid)
+            err = float((card.cpu().double() - cpu).abs().max())
+            log(f"[backbones] position grid 14x14 -> {grid}x{grid} (antialiased bicubic) on the "
+                f"card vs float64 on the CPU: max |d| {err:.2e} (tol 1e-5)")
+            if not err <= 1e-5:
+                raise AssertionError("the position-embedding resize disagrees on the card")
+        del x, out
+    log(f"[env] backbones (a) {time.perf_counter() - t_phase:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pool = jpeg_pool(rng)
+        torch.save(dino_state_dict(modules["dino"]), root / "dino.pth")
+        torch.save(torchvision_efficientnet_state_dict(modules["efficientnet"].backbone),
+                   root / "efficientnet.pth")
+        del modules
+        torch.cuda.empty_cache()
+
+        # (b) extraction from the .pth files
+        counts = {f"slide_{i}": int(rng.integers(EXTRACT_TILES[0], EXTRACT_TILES[1] + 1))
+                  for i in range(2)}
+        write_slides(root / "cohort", rng, pool, counts)
+        names = list(counts)
+        (root / "labels.json").write_text(json.dumps({"test": [[n, i % 2] for i, n in
+                                                                enumerate(names)]}))
+        ds = JPGMILDataset(root / "cohort", root / "labels.json", "test", 2)
+        first = fe.decode_batch(ds.tiles_of(0)[:EXTRACT_BATCH], TILE, fe.nt.available(), None)
+        first = torch.from_numpy(first).to(dev)
+        if first.dtype == torch.uint8:  # the native loader's: normalized on the card
+            first = ((first.float() / 255.0 - torch.from_numpy(fe.IMAGENET_MEAN).to(dev))
+                     / torch.from_numpy(fe.IMAGENET_STD).to(dev))
+        stream, clock = fe.extract_slide_features, {"stream": 0.0}
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = stream(*args, **kw)
+            sync(dev)
+            clock["stream"] += time.perf_counter() - t0
+            return out
+
+        fe.extract_slide_features = timed
+        try:
+            for name in BACKBONE_EXTRACT:
+                clock["stream"] = 0.0
+                t0 = time.perf_counter()
+                _, launches = all_launch_counts(lambda: quiet(cli_extract.main, [
+                    "--data_dir", str(root / "cohort"), "--label_file", str(root / "labels.json"),
+                    "--backbone", name, "--ckpt", str(root / f"{name}.pth"), "--batch_size",
+                    str(EXTRACT_BATCH), *device_arg, "--out_dir", str(root / name)],
+                    tag="backbones"))
+                wall = time.perf_counter() - t0
+                expect_launches_exactly(f"extract {name}", launches)
+                with torch.random.fork_rng(devices=[]):  # the CLI's module: key(0), the .pth
+                    torch.manual_seed(0)
+                    net, dim = create_backbone(name)
+                load_backbone_variables(net, convert_backbone_state_dict(
+                    torch.load(root / f"{name}.pth"), name))
+                with torch.inference_mode():
+                    want = net.to(dev).eval()(first).cpu().numpy()
+                del net
+                got = [h5.read(root / name / f"{n}.h5")["features"] for n in names]
+                err = float(np.abs(got[0][:EXTRACT_BATCH] - want).max() / np.abs(want).max())
+                log(f"[backbones] cli.extract_features --backbone {name} --ckpt {name}.pth: "
+                    f"{sum(counts.values())} tiles in {wall:.2f} s, streaming "
+                    f"{clock['stream']:.2f} s = {sum(counts.values()) / clock['stream']:.1f} "
+                    f"tiles/s; .h5 vs the in-process backbone on the first batch: max |d| "
+                    f"{err:.2e} of the largest (tol 1e-5); launches {launches}")
+                if not (all(g.shape == (counts[n], dim) and np.isfinite(g).all()
+                            for g, n in zip(got, names)) and err <= 1e-5):
+                    raise AssertionError(f"extract {name}: bad features")
+        finally:
+            fe.extract_slide_features = stream
+        del first
+        log(f"[env] backbones (a)+(b) {time.perf_counter() - t_phase:.1f} s")
+
+        def train(config: Path, log_dir: Path):
+            return quiet(cli.main, ["--config", str(config), "--log_dir", str(log_dir),
+                                    *device_arg], tag="backbones")
+
+        # (c) the images route over the ViT
+        img_counts = {f"{split}_{i}": IMAGE_TILES for split, k in BACKBONE_SPLITS.items()
+                      for i in range(k)}
+        write_slides(root / "images", rng, pool, img_counts)
+        labels = {split: [[f"{split}_{i}", i % 2] for i in range(k)]
+                  for split, k in BACKBONE_SPLITS.items()}
+        (root / "image_labels.json").write_text(json.dumps(labels))
+        data = {"data_dir": str(root / "images"), "label_file": str(root / "image_labels.json"),
+                "variant": "images"}
+        config = heads_config(root, "dino", DINO_CONFIG, data,
+                              {"backbone_weights": str(root / "dino.pth")}, epochs=1)
+        t0 = time.perf_counter()
+        summary, launches = all_launch_counts(lambda: train(config, root / "dino" / "log"))
+        evals = BACKBONE_SPLITS["val"] + BACKBONE_SPLITS["test"]
+        row = metric_rows(root / "dino" / "log")[0]
+        log(f"[backbones] cli.train {DINO_CONFIG} (variant images, {BACKBONE_SPLITS} slides of "
+            f"{IMAGE_TILES} tiles through the frozen ViT-B/16, 1 epoch): "
+            f"{time.perf_counter() - t0:.2f} s, epoch {row['epoch_time_s']:.2f} s, loss "
+            f"{row['loss']:.4f}, test AUC {summary['test_auc']:.4f}, launches {launches}")
+        expect_launches_exactly("images over the ViT", launches, translayer_k1=2 * evals,
+                                translayer_k2=2 * evals)
+        probe = cli.build(finalize_config(read_yaml(config), config_path=config),
+                          str(root / "dino" / "probe"), dev.type)
+        if probe.model.head._fc1[0].in_features != 768:
+            raise AssertionError("the head was not rebuilt for the ViT's 768-d features")
+        probe.model.load_state_dict(
+            read_checkpoint(root / "dino" / "log" / "checkpoints" / "last.ckpt")["model"])
+        bags = [torch.from_numpy(b.bags).to(dev) for mode in ("val", "test")
+                for b in probe.dm.eval_batches(mode, batch_size=1)]
+        probe.model.eval()
+        with torch.inference_mode():
+            fused, launches = all_launch_counts(lambda: [probe.forward(b) for b in bags])
+            probe.model.head.fused_inference = False
+            plain = [probe.forward(b) for b in bags]
+            probe.model.head.fused_inference = True
+        err = max(float((f - p).float().abs().max()) for f, p in zip(fused, plain))
+        log(f"[backbones] the images model's eval logits ({len(bags)} bags of {IMAGE_TILES} "
+            f"tiles, bf16 TransMIL as written), K1/K2 route vs all plain: max |dlogit| "
+            f"{err:.3e} (bar {BF16_BAR}), launches {launches}")
+        expect_launches_exactly("images logits", launches, translayer_k1=2 * len(bags),
+                                translayer_k2=2 * len(bags))
+        if not err <= BF16_BAR:
+            raise AssertionError("the images model's kernel route disagrees with the plain route")
+        del bags, fused, plain
+        prefetched_step_parts(probe, "backbones", "the images route's optimizer step")
+        del probe
+        torch.cuda.empty_cache()
+        log(f"[env] backbones (a)-(c) {time.perf_counter() - t_phase:.1f} s")
+
+        # (d) the classic per-tile route
+        pools = {TILE: pool, 299: jpeg_pool(rng, n=256, size=299)}
+        for net_name, config in CLASSIC_CONFIGS.items():
+            size = 299 if net_name == "inception" else TILE
+            folder = root / f"tiles_{size}"
+            if not folder.exists():
+                write_slides(folder, rng, pools[size], {n: CLASSIC_TILES for n in img_counts})
+            paths = {"data_dir": str(folder), "label_file": str(root / "image_labels.json")}
+            written = heads_config(root, f"{net_name}_as_written", config, paths, epochs=1)
+            try:
+                cli.build(finalize_config(read_yaml(written), config_path=written),
+                          str(root / f"{net_name}_as_written" / "log"), dev.type)
+            except KeyError as e:
+                if "C13" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{config} as written did not raise JAX's KeyError (C13)")
+            data = {**paths, "variant": "tiles",
+                    "train_dataloader": {"batch_size": CLASSIC_TILES, "num_workers": 4},
+                    **({"tile_size": 299} if size == 299 else {})}
+            config_t = heads_config(root, f"{net_name}_tiles", config, data,
+                                    {"name": CLASSIC_HEAD}, epochs=1)
+            cfg = finalize_config(read_yaml(config_t), config_path=config_t)
+            probe = cli.build(cfg, str(root / f"{net_name}_tiles" / "probe"), dev.type)
+            init = {k: v.detach().clone() for k, v in probe.model.state_dict().items()}
+            acc = probe.tx.grad_accum_steps
+            # the step's batches: 64 val tiles each, as train's but without the
+            # host's stain augmentation (~90 ms a tile), which the epoch below pays
+            batches = list(itertools.islice(probe.dm.eval_batches("val", CLASSIC_TILES), acc))
+            held = ""
+            if net_name in ("vit", "resnet18"):  # the first step's loss, card vs float64
+                bags, labels = probe._batch_tensors(batches[0])
+                bags, labels = bags[:CLASSIC_HELD], labels[:CLASSIC_HELD]
+                cpu = copy.deepcopy(probe.model).cpu().double().train()
+                with torch.no_grad():
+                    want = float(probe.loss_fn(cpu(bags.cpu().double()), F.one_hot(
+                        labels.cpu(), 2).double()))
+                    got = float(probe.loss(bags, labels)[0])
+                del cpu
+                held = (f"; first step's loss at {CLASSIC_HELD} tiles {got:.6f} vs float64 on "
+                        f"the CPU {want:.6f} (tol 1e-3)")
+                if not abs(got - want) <= 1e-3:
+                    raise AssertionError(f"{net_name}: the card's loss disagrees with float64")
+            ms, ms_min = head_step_ms(probe, batches)
+            del probe, batches
+            t0 = time.perf_counter()
+            summary, launches = all_launch_counts(
+                lambda: train(config_t, root / f"{net_name}_tiles" / "log"))
+            wall = time.perf_counter() - t0
+            expect_launches_exactly(f"tiles {net_name}", launches)
+            log_dir = root / f"{net_name}_tiles" / "log"
+            after = read_checkpoint(log_dir / "checkpoints" / "last.ckpt")["model"]
+            stats = [k for k in after if k.endswith("running_mean")]
+            moved = sum(not torch.equal(after[k].cpu(), init[k].cpu()) for k in stats)
+            row = metric_rows(log_dir)[0]
+            n_train = BACKBONE_SPLITS["train"] * CLASSIC_TILES
+            log(f"[backbones] cli.train {config} (variant tiles, Model.name {CLASSIC_HEAD}, "
+                f"{BACKBONE_SPLITS} slides of {CLASSIC_TILES} {size}-px tiles, batch "
+                f"{CLASSIC_TILES}, grad_acc {acc}, 1 epoch): {wall:.2f} s, epoch "
+                f"{row['epoch_time_s']:.2f} s ({n_train} augmented train tiles, "
+                f"{n_train / row['epoch_time_s']:.1f} tiles/s with the evals), loss "
+                f"{row['loss']:.4f}; tile-level test AUROC: "
+                f"tiles {summary['test_auc']:.4f}, slides "
+                f"{slide_auroc(log_dir / 'TEST_RESULT_SLIDE.csv'):.4f}, patients "
+                f"{summary['test_patient_auc']:.4f}; optimizer step {ms:.1f} ms (min "
+                f"{ms_min:.1f}) = {acc * CLASSIC_TILES / ms * 1e3:.0f} tiles/s; BatchNorm "
+                f"running means moved: {moved} of {len(stats)}{held}; launches {launches}")
+            if (net_name == "vit") != (not stats) or moved != len(stats):
+                raise AssertionError(f"{net_name}: the BatchNorm statistics did not train")
+            torch.cuda.empty_cache()
+    log(f"[env] backbones phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2692,6 +3087,7 @@ def main() -> int:
     log(f"[env] heads phase {time.perf_counter() - t_new:.1f} s")
     phase_zoo(rng, results, dev)
     phase_extract(rng, results, dev, variables)
+    phase_backbones(rng, results, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

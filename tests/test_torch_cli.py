@@ -264,8 +264,10 @@ def test_infer_matches_the_jax_cli(checkpoints, capsys):
 
 
 def test_infer_refuses_what_the_port_lacks(checkpoints):
+    """A classic network is no bag head: refused as JAX's create_model
+    refuses it (ROADMAP C13); several chips wait on ROADMAP item 10."""
     args = _infer_args(checkpoints, checkpoints / "x")
-    with pytest.raises(SystemExit, match="item 8"):
+    with pytest.raises(SystemExit, match="unknown model, not a bag head"):
         infer.main(args + ["--model", "vit", "--device", "cpu"])
     with pytest.raises(SystemExit, match="item 10"):
         infer.main(args + ["--n_chips", "2", "--device", "cpu"])

@@ -181,11 +181,10 @@ def test_image_mil_model_matches_jax(head, tol):
     assert all(p.grad is None for p in tmodel.backbone.parameters())
     assert all(p.grad is not None for p in tmodel.head.parameters() if p.requires_grad)
     assert torch.equal(stats, tmodel.backbone.backbone.bn1.running_mean)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tbb.ImageMILModel(tbackbone, tmodel.head, pyramid=True)
-    for name in ("vit", "dino", "efficientnet", "inception"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tbb.create_backbone(name)
+    # the pyramid stream and the other backbones are held in test_torch_backbones.py
+    assert tbb.ImageMILModel(tbackbone, tmodel.head, pyramid=True).pyramid
+    for name, dim in (("vit", 768), ("dino", 768), ("efficientnet", 512), ("inception", 2048)):
+        assert tbb.create_backbone(name)[1] == dim
 
 
 # ----------------------------------------------------------- extraction

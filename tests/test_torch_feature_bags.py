@@ -194,20 +194,16 @@ def image_cohorts(tmp_path_factory):
 
 # the spatial variant on feature bags is held in tests/test_torch_zoo.py; with
 # Camelyon's source it reads Camelyon's bags, as in JAX. 'tiles' (the classic
-# per-tile models) is not ported yet.
+# per-tile models) reads the images variant's folders tile by tile.
 @pytest.mark.parametrize("over", [{"variant": "spatial", "dataset_name": "camelyon"},
                                   {"variant": "images"},
                                   {"variant": "tiles"}, {"variant": "image_bags"},
                                   {"dataset_name": "camelyon"}], ids=str)
 def test_datamodule_refuses_what_is_not_ported(cohort, image_cohorts, over):
-    """What the port has not ported raises naming its ROADMAP item; every
-    other source gives JAX's train batches (epochs 0 and 1) and eval batches
-    byte for byte."""
-    if over.get("variant") == "tiles":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            MILDataModule(str(cohort / "data"), str(cohort / "labels.json"), **over)
-        return
-    data_dir, label_path = image_cohorts[over.get("dataset_name", over.get("variant"))]
+    """Every source, the classic per-tile one included, gives JAX's train
+    batches (epochs 0 and 1) and eval batches byte for byte."""
+    source = over.get("dataset_name", over.get("variant"))
+    data_dir, label_path = image_cohorts["images" if source == "tiles" else source]
     kw = dict(n_classes=2, max_bag_size=5, batch_size=2, tile_size=16, **over)
     jdm = JaxDataModule(str(data_dir), str(label_path), **kw)
     tdm = MILDataModule(str(data_dir), str(label_path), **kw)

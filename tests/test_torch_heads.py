@@ -332,7 +332,8 @@ def test_roformer_logits_padded_or_exact_and_translated(landmarks):
 def test_create_model_rules():
     """out_features goes to the heads that take it; precision 16 makes a
     bfloat16 TransMIL and leaves the other heads in float32, as JAX does;
-    att_trans_pyramid and use_pallas off TransMIL raise."""
+    att_trans_pyramid builds (its 2,304-d cascade, held to JAX in
+    test_torch_backbones.py) and use_pallas off TransMIL raises."""
     x = torch.zeros(1, 12, 64)
     for name in ("AttMIL", "TransformerMIL", "Chowder", "RoFormerMIL", "AttTrans",
                  "MonaiMILModel"):
@@ -344,8 +345,9 @@ def test_create_model_rules():
         torch.bfloat16
     assert create_model("AttMIL", 2, 64, 32, device="cpu").classifier[0].in_features == 32
     assert create_model("RoFormerMIL", 2, 64, 48, device="cpu").fc2.in_features == 48
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        create_model("AttTrans", 2, 64, device="cpu", mil_mode="att_trans_pyramid")
+    pyramid = create_model("AttTrans", 2, 64, device="cpu", mil_mode="att_trans_pyramid",
+                           trans_blocks=1)
+    assert pyramid.myfc.in_features == 2304 and pyramid.gives_attention
     with pytest.raises(ValueError, match="use_pallas"):
         create_model("AttMIL", 2, 64, device="cpu", use_pallas=True)
 

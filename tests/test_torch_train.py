@@ -121,17 +121,13 @@ def test_batches_are_byte_identical_to_jax():
             assert (jb.names, jb.patients) == (tb.names, tb.patients)
             assert jb.padded_coords.tobytes() == tb.padded_coords.tobytes()
     assert jdm.steps_per_epoch() == tdm.steps_per_epoch()
-    # every source but the classic per-tile one is ported (the images,
-    # image_bags and Camelyon sources are held to JAX in
-    # test_torch_feature_bags.py, the spatial variant in test_torch_zoo.py)
+    # every source is ported (the images, tiles, image_bags and Camelyon
+    # sources are held to JAX in test_torch_feature_bags.py, the spatial
+    # variant in test_torch_zoo.py)
     for over in ({"variant": "images"}, {"variant": "tiles"}, {"variant": "image_bags"},
                  {"dataset_name": "camelyon"}):
-        if over.get("variant") == "tiles":
-            with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-                MILDataModule("/nonexistent", n_classes=2, **over)
-        else:
-            assert MILDataModule("/nonexistent", n_classes=2, **over).dataset_name in (
-                "custom", "camelyon")
+        assert MILDataModule("/nonexistent", n_classes=2, **over).dataset_name in (
+            "custom", "camelyon")
 
 
 # -------------------------------------------------------------- optimizer
@@ -258,7 +254,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tdm = _modules()
     model = create_model("TransMIL", N_CLS, IN_F, OUT_F, device="cpu")
     for over in ({"swa": True}, {"autosave_steps": 5}, {"use_tensorboard": True},
-                 {"tile_level": True}, {"ckpt_backend": "orbax"}):
+                 {"ckpt_backend": "orbax"}):
         with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             Trainer(model, create_optimizer(), tdm, n_classes=N_CLS,
                     loss_fn=tlosses.create_loss(),

@@ -255,10 +255,16 @@ def test_fine_tune_stage_continues_from_last_ckpt(run, tmp_path):
     assert np.isfinite(summary["test_loss"])
 
 
-@pytest.mark.parametrize("model, match", [("vit", "ROADMAP A8"), ("resnet18", "ROADMAP A8"),
-                                          ("inception", "ROADMAP A8")])
+@pytest.mark.parametrize("model, match", [("vit", "unknown model 'vit'"),
+                                          ("resnet18", "unknown model 'resnet18'"),
+                                          ("inception", "unknown model 'inception'")])
 def test_cli_refuses_unported_heads(run, tmp_path, model, match):
+    """A classic network in Model.name: JAX's KeyError in both CLIs
+    (ROADMAP C13; the classic route is Data.variant tiles, in
+    test_torch_classic.py)."""
     config = _write_config(tmp_path, "TransMIL_x_norm_rest.yaml", Data=run["data"],
                            Model={"name": model})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(KeyError, match=match):
+        jcli.main(["--config", str(config), "--log_dir", str(tmp_path / "jax")])
+    with pytest.raises(KeyError, match=f"{match}.*ROADMAP C13"):
         tcli.main(["--config", str(config), "--log_dir", str(tmp_path), "--device", "cpu"])

@@ -113,8 +113,10 @@ def test_flatten_unflatten_round_trip():
 
 
 def test_create_model_rejects_other_heads():
-    for name in ("inception", "vit", "resnet18"):
-        with pytest.raises(KeyError, match="ROADMAP A8"):
+    """The classic per-tile networks are no heads: JAX's KeyError, which
+    names ROADMAP C13."""
+    for name in ("inception", "vit", "resnet18", "efficientnet"):
+        with pytest.raises(KeyError, match="unknown model .*ROADMAP C13"):
             create_model(name, 2, device="cpu")
     with pytest.raises(KeyError, match="unknown model"):
         create_model("NoSuchHead", 2, device="cpu")

@@ -70,7 +70,7 @@ def make_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     import numpy as np
 
-    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED, SPATIAL_HEADS
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, SPATIAL_HEADS
     from transmil_deepgraft_tpu_torch.serving import export_serving_bundle, export_slide_bundle
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
@@ -80,9 +80,10 @@ def main(argv: list[str] | None = None) -> dict:
         raise SystemExit("--platforms and --symbolic choose the programs of a JAX bundle; the "
                          "port's bundles hold weights, not programs")
     if args.model not in MODEL_REGISTRY:
-        item = NOT_PORTED.get(args.model, "A7")
-        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP queue A item "
-                         f"{item[1:]}); the port exports {sorted(MODEL_REGISTRY)}")
+        # JAX's create_model raises KeyError: the classic per-tile models are
+        # not bag heads (ROADMAP C13), and neither package exports them
+        raise SystemExit(f"--model {args.model}: unknown model, not a bag head; the port "
+                         f"exports {sorted(MODEL_REGISTRY)}")
     if args.model in SPATIAL_HEADS:
         raise SystemExit(f"--model {args.model} takes (H, W, D) grid volumes, which a bundle "
                          "does not carry; it trains with cli.train (ROADMAP A7, done but for "

@@ -8,8 +8,11 @@ coords}`` files (and N stain-augmented copies), then optionally pack them
 into a native bag store (``<out_dir>/cohort.bags``). Prints one JSON line,
 ``{"slides", "files", "dim", "out"}``.
 
-Runs on the card unless ``--device cpu``; ``--quantize int8`` /
-``int8_fused`` run the int8 ResNet50, whose stages are the int8 stage and
+Runs on the card unless ``--device cpu``. ``--backbone`` is any tile
+backbone of ``models/backbones`` (retccl, resnet50, resnet18, simple,
+efficientnet, vit, dino); ``--ckpt`` converts a .pth in the reference's
+names for it. ``--quantize int8`` / ``int8_fused`` run the int8 ResNet50
+(the ResNet50 family only, as in JAX), whose stages are the int8 stage and
 entry kernels on the card.
 """
 
@@ -50,20 +53,24 @@ def main(argv: list[str] | None = None) -> list[str]:
     from transmil_deepgraft_tpu_torch.models.backbones import create_backbone
 
     args = make_parser().parse_args(argv)
+    if args.quantize and args.backbone not in ("retccl", "resnet50"):
+        raise SystemExit(f"--quantize {args.quantize} quantizes the ResNet50 family "
+                         f"(retccl, resnet50), not {args.backbone!r}")
     dev = resolve_device(args.device)
     with torch.random.fork_rng(devices=[]):  # JAX initializes from key(0)
         torch.manual_seed(0)
         backbone, dim = create_backbone(args.backbone)
     if args.ckpt:
-        from transmil_deepgraft_tpu_torch.utils.jax_params import backbone_state_dict_from_jax
+        # converted by backbone, as cli.train converts Model.backbone_weights
+        # (JAX's extract CLI converts every checkpoint as a ResNet, ROADMAP C15)
+        from transmil_deepgraft_tpu_torch.models.backbones import load_backbone_variables
         from transmil_deepgraft_tpu_torch.utils.torch_weights import (
-            convert_resnet_state_dict,
+            convert_backbone_state_dict,
             load_torch_checkpoint,
         )
 
-        converted = convert_resnet_state_dict(load_torch_checkpoint(args.ckpt),
-                                              getattr(backbone, "truncate_after", 4))
-        backbone.load_state_dict(backbone_state_dict_from_jax(converted))
+        load_backbone_variables(backbone, convert_backbone_state_dict(
+            load_torch_checkpoint(args.ckpt), args.backbone))
 
     ds = JPGMILDataset(args.data_dir, args.label_file, args.mode, n_classes=2)
     written = extract_cohort(backbone, ds, args.out_dir, batch_size=args.batch_size,

@@ -56,16 +56,17 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
-    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED, SPATIAL_HEADS
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, SPATIAL_HEADS
     from transmil_deepgraft_tpu_torch.serving import head_from_params
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
 
     args = make_parser().parse_args(argv)
     if args.model not in MODEL_REGISTRY:
-        item = NOT_PORTED.get(args.model, "A7")
-        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP queue A item "
-                         f"{item[1:]}); the port serves {sorted(MODEL_REGISTRY)}")
+        # JAX's create_model raises KeyError: the classic per-tile models are
+        # not bag heads (ROADMAP C13), and neither package serves them
+        raise SystemExit(f"--model {args.model}: unknown model, not a bag head; the port "
+                         f"serves {sorted(MODEL_REGISTRY)}")
     if args.model in SPATIAL_HEADS:
         raise SystemExit(f"--model {args.model} takes (H, W, D) grid volumes, not a slide's "
                          "bag of tiles (ROADMAP A7, done but for serving the spatial heads)")

@@ -23,11 +23,17 @@ variant's feature volumes. ``General.precision`` 16 or ``16-mixed`` trains a
 bfloat16-compute TransMIL, and the other heads in float32, as the JAX
 package's ``create_model`` does. ``Data.variant: images`` trains a head
 behind a frozen tile backbone (``Model.backbone``: retccl, resnet50,
-resnet18 or simple; ``Model.backbone_weights`` a .pth or flax msgpack file)
+resnet18, simple, vit/dino, efficientnet or inception;
+``Model.backbone_weights`` a .pth in the reference's names or a flax msgpack
+file)
 on JPEG tile folders, ``image_bags`` on legacy HDF5/npy tile stacks, and
-``Data.dataset_name: camelyon`` reads Camelyon16's fold CSVs. The classic
-per-tile models and the ``tiles`` variant (ROADMAP A8) are not ported yet
-and raise.
+``Data.dataset_name: camelyon`` reads Camelyon16's fold CSVs.
+``Data.variant: tiles`` is the classic per-tile pipeline: the classifier of
+``Model.backbone`` (vit, resnet18, efficientnet, inception, ...) over single
+tiles, its BatchNorm trained, eval aggregated tile -> slide -> patient. As
+in JAX, ``Model.name`` must still be a bag head (which that route builds and
+drops): the classic configs, whose ``Model.name`` is the network, raise
+JAX's KeyError (ROADMAP C13).
 """
 
 from __future__ import annotations
@@ -88,7 +94,8 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
     from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.models import (
-        NOT_PORTED, SPATIAL_HEADS, ImageMILModel, create_backbone, create_model)
+        CLASSIC_NAMES, SPATIAL_HEADS, ImageMILModel, create_backbone, create_classic_model,
+        create_model)
     from transmil_deepgraft_tpu_torch.train.losses import create_loss
     from transmil_deepgraft_tpu_torch.train.optimizers import (
         create_dtfd_optimizer, create_optimizer_from_config)
@@ -100,9 +107,6 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
     out_features = int(cfg.Model.out_features or 512)
     model_name = str(cfg.Model.name)
     is_dtfd = model_name in ("DTFD", "DTFDMIL")
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(f"Model.name {model_name!r} is not ported yet (ROADMAP "
-                                  f"{NOT_PORTED[model_name]})")
     dev = resolve_device(device)
     seed = int(cfg.General.seed or 2021)
 
@@ -125,13 +129,16 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         fine_tune=bool(cfg.fine_tune),
         dataset_name=str(cfg.Data.dataset_name or "custom"),
         fold=int(cfg.Data.fold or 0),
-        tile_size=int(cfg.Data.tile_size or 224),
-        # the variant by head (JAX cli/train.py:112-118): spatial feature
-        # volumes for CTMIL/resnet50, feature bags for the other ported heads
+        # inception takes 299x299 tiles (ref classic_jpg_dataloader.py)
+        tile_size=int(cfg.Data.tile_size or (299 if model_name == "inception" else 224)),
+        # the variant by name (JAX cli/train.py:104-118): single tiles for a
+        # classic network (which create_model then refuses, ROADMAP C13),
+        # spatial feature volumes for CTMIL/resnet50, else feature bags
         variant=str(cfg.Data.variant
-                    or ("spatial" if model_name in SPATIAL_HEADS else "features")),
+                    or ("tiles" if model_name in CLASSIC_NAMES
+                        else "spatial" if model_name in SPATIAL_HEADS else "features")),
     )
-    if dm.variant == "images":
+    if dm.variant in ("images", "tiles"):
         dm.eval_pad = "exact"  # image bags: bucketing to 2^k tiles wastes backbone compute
     if is_dtfd and dm.batch_size != 1:
         # DTFD takes one slide at a time (ref model_interface_dtfd.py:183)
@@ -139,6 +146,7 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         dm.batch_size = 1
     backbone_name = str(cfg.Model.backbone or "features")
     images = dm.variant == "images" and backbone_name != "features"
+    tiles = dm.variant == "tiles"
 
     def head(in_f: int):
         return create_model(model_name, n_classes=n_classes, in_features=in_f,
@@ -159,6 +167,8 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
             if feat_dim != in_features:
                 model = head(feat_dim)
             model = ImageMILModel(backbone, model).to(dev)
+        elif tiles:  # the classic per-tile classifier replaces the head (JAX :150-153)
+            model = create_classic_model(backbone_name, n_classes, dev)
     loss_fn = create_loss(str(cfg.Loss.base_loss or "CrossEntropyLoss"))
     grad_acc = int(cfg.General.grad_acc or 1)
     if is_dtfd:
@@ -179,6 +189,7 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         task=str(cfg.task or "norm_rest"),
         fast_dev_run=bool(cfg.fast_dev_run),
         eval_batch_size=int(cfg.Data.test_dataloader.batch_size or 1),
+        tile_level=tiles,
     )
     # JAX shards the batch over gcd(batch, devices) devices; the port trains
     # on one card (data parallelism is ROADMAP A10)

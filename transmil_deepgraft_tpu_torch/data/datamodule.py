@@ -23,8 +23,10 @@ tile stacks in [-1, 1]
 (:class:`~transmil_deepgraft_tpu_torch.data.image_bags.ImageBagDataset`, padded
 with -1); ``dataset_name='camelyon'`` reads Camelyon16's fold CSVs and ``.pt``
 bags (:class:`~transmil_deepgraft_tpu_torch.data.camelyon.CamelyonDataset`),
-whatever the variant, as in JAX. The ``tiles`` variant (the classic per-tile
-models) is not ported yet (ROADMAP A8) and raises.
+whatever the variant, as in JAX; ``variant='tiles'`` (the classic per-tile
+models) gives single tiles, each with its slide's label, augmented in train
+(:class:`~transmil_deepgraft_tpu_torch.data.jpg_bags.JPGTileDataset` over
+the same folders), at ``tile_size``.
 """
 
 from __future__ import annotations
@@ -119,10 +121,6 @@ class MILDataModule:
                  fine_tune: bool = False, dataset_name: str = "custom", fold: int = 0,
                  variant: str = "features", mixed_res_dirs: list | None = None,
                  tile_size: int = 224, resample_val: bool = False) -> None:
-        if synthetic is None and dataset_name != "camelyon" and variant == "tiles":
-            raise NotImplementedError(
-                "dataset variant 'tiles' (the classic per-tile models) is not ported yet "
-                "(ROADMAP A8); the port has 'features', 'spatial', 'images' and 'image_bags'")
         self.data_dir = data_dir
         self.label_path = label_path
         self.n_classes = n_classes
@@ -140,7 +138,7 @@ class MILDataModule:
         self.fold = fold
         self.variant = variant
         self.mixed_res_dirs = mixed_res_dirs
-        self.tile_size = tile_size  # read by the images variant only
+        self.tile_size = tile_size  # read by the images and tiles variants only
         self.resample_val = resample_val  # the reference's val sampler (off by default)
         self._datasets: dict = {}
         self._bagstore = None
@@ -195,12 +193,13 @@ class MILDataModule:
             return ImageBagDataset(self.data_dir, self.label_path, actual_mode, self.n_classes,
                                    slide_patient_path=self.slide_patient_path,
                                    bag_size=self.max_bag_size)
-        if self.variant == "images":
-            from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset
+        if self.variant in ("images", "tiles"):
+            from transmil_deepgraft_tpu_torch.data.jpg_bags import JPGMILDataset, JPGTileDataset
 
-            return JPGMILDataset(self.data_dir, self.label_path, actual_mode, self.n_classes,
+            bags = JPGMILDataset(self.data_dir, self.label_path, actual_mode, self.n_classes,
                                  slide_patient_path=self.slide_patient_path,
                                  max_bag_size=self.max_bag_size, tile_size=self.tile_size)
+            return JPGTileDataset(bags) if self.variant == "tiles" else bags
         return FeatureBagDataset(
             self.data_dir, self.label_path, actual_mode, self.n_classes,
             slide_patient_path=self.slide_patient_path, max_bag_size=self.max_bag_size,

@@ -7,8 +7,8 @@ are folders ``<cohort>/BLOCKS/<slide>/*.jpg|png``, tile grid coords come
 from the ``(x-y)`` file-name suffix, tiles are ImageNet-normalized, and a
 train bag is a random subsample of ``max_bag_size`` tiles zero-padded to
 that size. :class:`JPGTileDataset` is the classic path's per-tile view
-(labels from the slide, the stain-augmentation stack); it is data only here,
-since the classic models that train on it are not ported yet (ROADMAP A8).
+(labels from the slide, the stain-augmentation stack), which the
+``tiles`` variant of ``data/datamodule`` gives the classic tile classifiers.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ Every bag-level head of the JAX zoo (TransMIL, TransformerMIL, AttMIL,
 Chowder, RoFormerMIL, AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL)
 and the two heads over spatial feature volumes (CTMIL, ``resnet50``), the
 tile backbones (``models/backbones``: RetCCL ResNet50, the CLAM baseline,
-ResNet18, the simple CNN) with ``ImageMILModel``, which puts one in front of
-a head, and the ResNet50's int8 post-training-quantized form."""
+ResNet18, the simple CNN, ViT-B/16 (vit/dino), EfficientNet-B0, InceptionV3)
+with ``ImageMILModel``, which puts one in front of a head, the classic
+per-tile classifiers (:func:`create_classic_model`) and the ResNet50's int8
+post-training-quantized form."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models.attmil import AttMIL
 from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, create_backbone
 from transmil_deepgraft_tpu_torch.models.chowder import Chowder
+from transmil_deepgraft_tpu_torch.models.classic import ClassicTileClassifier, classic_model
 from transmil_deepgraft_tpu_torch.models.clam import CLAM_MB, CLAM_SB
 from transmil_deepgraft_tpu_torch.models.ctmil import CTMIL
 from transmil_deepgraft_tpu_torch.models.dsmil import DSMIL
@@ -54,9 +57,17 @@ MODEL_REGISTRY: dict[str, type[torch.nn.Module]] = {
 }
 # the heads over (B, H, W, D) spatial feature volumes, not bags of tiles
 SPATIAL_HEADS = ("CTMIL", "resnet50")
-# the JAX package's other models, and the ROADMAP item that ports each: the
-# classic per-tile models it trains on tiles (A8)
-NOT_PORTED = {"inception": "A8", "resnet18": "A8", "vit": "A8", "efficientnet": "A8"}
+# the classic per-tile models' names, which configs put in Model.name and
+# which no registry of either package holds (ROADMAP C13)
+CLASSIC_NAMES = ("inception", "resnet18", "vit", "efficientnet")
+
+
+def create_classic_model(backbone_name: str, n_classes: int,
+                         device: str | torch.device | None = None) -> ClassicTileClassifier:
+    """The per-tile classifier of the classic pipeline (ref
+    ModelInterface_Classic) over ``backbone_name``, on ``device`` (None =
+    CUDA)."""
+    return classic_model(backbone_name, n_classes).to(resolve_device(device))
 
 
 def create_model(name: str, n_classes: int, in_features: int = 2048,
@@ -73,11 +84,12 @@ def create_model(name: str, n_classes: int, in_features: int = 2048,
     makes a bfloat16-compute TransMIL with float32 parameters; as in JAX it
     applies to TransMIL alone, and the other heads (the AttMIL and
     TransformerMIL configs ask for 16) compute in float32."""
-    if name in NOT_PORTED:
-        raise KeyError(f"model '{name}' is not ported yet (ROADMAP {NOT_PORTED[name]}); the "
-                       f"port has: {sorted(MODEL_REGISTRY)}")
     if name not in MODEL_REGISTRY:
-        raise KeyError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}")
+        # JAX's KeyError; the classic models' names fail so too (ROADMAP C13)
+        classic = (" (a classic per-tile model: train it with Data.variant 'tiles', its "
+                   "network in Model.backbone and a bag head in Model.name; ROADMAP C13)"
+                   if name in CLASSIC_NAMES else "")
+        raise KeyError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}{classic}")
     dev = resolve_device(device)
     common: dict[str, Any] = {"n_classes": n_classes, "in_features": in_features}
     if "out_features" in inspect.signature(MODEL_REGISTRY[name]).parameters:
@@ -104,8 +116,9 @@ def head_logits(model: torch.nn.Module, *args: Any) -> torch.Tensor:
 
 
 __all__ = [
-    "AttMIL", "CLAM_MB", "CLAM_SB", "CTMIL", "Chowder", "DSMIL", "DTFDMIL", "ImageMILModel",
-    "MDMIL", "MODEL_REGISTRY", "MonaiMIL", "QResNet50", "ResNet", "RoFormerMIL", "SPATIAL_HEADS",
-    "SpatialResNetMIL", "TransMIL", "TransMILAttention", "TransformerMIL", "apply_qresnet50",
-    "build_qresnet50", "create_backbone", "create_model", "head_logits", "resnet50", "resnet50_baseline",
+    "AttMIL", "CLAM_MB", "CLAM_SB", "CLASSIC_NAMES", "CTMIL", "Chowder", "ClassicTileClassifier",
+    "DSMIL", "DTFDMIL", "ImageMILModel", "MDMIL", "MODEL_REGISTRY", "MonaiMIL", "QResNet50",
+    "ResNet", "RoFormerMIL", "SPATIAL_HEADS", "SpatialResNetMIL", "TransMIL", "TransMILAttention",
+    "TransformerMIL", "apply_qresnet50", "build_qresnet50", "create_backbone",
+    "create_classic_model", "create_model", "head_logits", "resnet50", "resnet50_baseline",
 ]

@@ -3,13 +3,16 @@
 The reference's backbone selection (``code/models/model_interface.py:223-281``):
 'features' (precomputed bags, no backbone), 'retccl' (RetCCL ResNet50 ->
 2048-d), 'resnet50' (the CLAM baseline -> 1024-d), 'resnet18' (+ a Linear to
-``out_features``), 'simple' (the Ilse CNN -> 1024-d). The ViT, DINO,
-EfficientNet and Inception backbones are not ported yet (ROADMAP A8).
+``out_features``), 'simple' (the Ilse CNN -> 1024-d), 'vit'/'dino' (ViT-B/16
+-> 768-d, ``models/vit.py``), 'inception' (InceptionV3 -> 2048-d, the
+classic zoo's, ``models/inception.py``) and 'efficientnet' (EfficientNet-B0
++ Linear(1280, ``out_features``) + GELU, ``models/efficientnet.py``).
 
 :class:`ImageMILModel` is the reference's ``ModelInterface.forward`` reshape
 path (``model_interface.py:297-317``): the tiles of a batch of bags stream
 through the frozen backbone in ``n_chunks`` sequential chunks (activation
-memory is one chunk) into the bag head.
+memory is one chunk) into the bag head; with ``pyramid`` the ResNet's
+per-stage features stream beside them (MONAI's ``att_trans_pyramid``).
 """
 
 from __future__ import annotations
@@ -20,12 +23,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transmil_deepgraft_tpu_torch.models.efficientnet import efficientnet_b0
+from transmil_deepgraft_tpu_torch.models.inception import inception_v3
 from transmil_deepgraft_tpu_torch.models.resnet import (
     ResNet,
     resnet18,
     resnet50_baseline,
     retccl_resnet50,
 )
+from transmil_deepgraft_tpu_torch.models.vit import vit_base
+from transmil_deepgraft_tpu_torch.utils.jax_params import backbone_state_dict_from_jax
 
 BACKBONE_DIMS = {
     "retccl": 2048,
@@ -37,8 +44,6 @@ BACKBONE_DIMS = {
     "efficientnet": 1280,
     "inception": 2048,
 }
-# the JAX package's other backbones, and the ROADMAP item that ports them
-NOT_PORTED = {"vit": "A8", "dino": "A8", "efficientnet": "A8", "inception": "A8"}
 
 
 class SimpleCNN(nn.Module):
@@ -61,15 +66,19 @@ class SimpleCNN(nn.Module):
 
 class ProjectedBackbone(nn.Module):
     """A backbone and a trainable linear projection (the reference's
-    resnet18 path: frozen conv stack, ``Linear(512, out_features)``)."""
+    resnet18 path: frozen conv stack, ``Linear(512, out_features)``; the
+    efficientnet path adds the exact GELU, ``activation='gelu'``)."""
 
-    def __init__(self, backbone: nn.Module, in_features: int, out_features: int) -> None:
+    def __init__(self, backbone: nn.Module, in_features: int, out_features: int,
+                 activation: str = "none") -> None:
         super().__init__()
         self.backbone = backbone
         self.proj = nn.Linear(in_features, out_features)
+        self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(self.backbone(x))
+        out = self.proj(self.backbone(x))
+        return F.gelu(out) if self.activation == "gelu" else out
 
 
 def create_backbone(name: str, out_features: int = 512) -> tuple[Optional[nn.Module], int]:
@@ -85,9 +94,32 @@ def create_backbone(name: str, out_features: int = 512) -> tuple[Optional[nn.Mod
         return ProjectedBackbone(resnet18(), 512, out_features), out_features
     if name == "simple":
         return SimpleCNN(), 1024
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]})")
+    if name in ("vit", "dino"):
+        return vit_base(), 768
+    if name == "inception":  # the classic zoo's (ref model_interface_classic.py:198-204)
+        return inception_v3(), 2048
+    if name == "efficientnet":  # ref model_interface.py:260-267
+        return ProjectedBackbone(efficientnet_b0(), 1280, out_features, activation="gelu"), \
+            out_features
     raise KeyError(f"unknown backbone '{name}'")
+
+
+def load_backbone_variables(backbone: nn.Module, variables: dict) -> None:
+    """Load flax-layout ``{'params', 'batch_stats'}`` (``utils/torch_weights
+    .convert_backbone_state_dict`` of a .pth, or JAX's variables) into a
+    backbone: raw weights for a ``ProjectedBackbone`` go into its inner
+    network and keep the projection; weights of stages the backbone does not
+    have (a truncated ResNet) are ignored; a weight of another shape raises."""
+    if isinstance(backbone, ProjectedBackbone) and "proj" not in variables["params"]:
+        backbone = backbone.backbone
+    own = backbone.state_dict()
+    given = {k: v for k, v in backbone_state_dict_from_jax(variables).items() if k in own}
+    misfit = [k for k, v in given.items() if v.shape != own[k].shape]
+    if misfit:  # e.g. NVIDIA's widese EfficientNet into the standard B0 (ROADMAP C14)
+        raise ValueError(f"the weights do not fit the backbone: {misfit[0]} is "
+                         f"{tuple(given[misfit[0]].shape)}, the backbone's "
+                         f"{tuple(own[misfit[0]].shape)} (ROADMAP C14 for efficientnet)")
+    backbone.load_state_dict(given)
 
 
 class ImageMILModel(nn.Module):
@@ -98,25 +130,26 @@ class ImageMILModel(nn.Module):
     chunks are equal, as JAX's ``nn.scan`` needs), under ``no_grad`` (JAX's
     ``stop_gradient``). The backbone stays in eval mode whatever the mode of
     the model (flax's ``train=False``): its BatchNorm uses the running
-    statistics and never updates them."""
+    statistics and never updates them. With ``pyramid`` the backbone (a
+    ResNet) also gives its stages' pooled features, chunk by chunk, and the
+    head (MONAI's ``att_trans_pyramid``) takes them as ``pyramid``."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module, n_chunks: int = 10,
                  pyramid: bool = False) -> None:
         super().__init__()
-        if pyramid:
-            raise NotImplementedError("the pyramid stream (att_trans_pyramid) is not ported yet "
-                                      "(ROADMAP A8)")
         self.backbone = backbone.eval()
         self.head = head
         self.n_chunks = n_chunks
+        self.pyramid = pyramid
 
     def train(self, mode: bool = True) -> "ImageMILModel":
         super().train(mode)
         self.backbone.eval()
         return self
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, bag, H, W, C) tiles -> (B, bag, D) features."""
+    def embed(self, x: torch.Tensor):
+        """(B, bag, H, W, C) tiles -> (B, bag, D) features; with ``pyramid``
+        (features, the tuple of the stages' (B, bag, D_s) features)."""
         b, bag = x.shape[:2]
         tiles = x.reshape(b * bag, *x.shape[2:])
         n_total = tiles.shape[0]
@@ -124,13 +157,24 @@ class ImageMILModel(nn.Module):
         pad = (-n_total) % chunks
         if pad:
             tiles = torch.cat([tiles, tiles.new_zeros((pad, *tiles.shape[1:]))])
+        kwargs = {"return_pyramid": True} if self.pyramid else {}
         with torch.no_grad():
-            feats = torch.cat([self.backbone(c) for c in tiles.chunk(chunks)])
-        return feats[:n_total].reshape(b, bag, -1)
+            outs = [self.backbone(c, **kwargs) for c in tiles.chunk(chunks)]
+
+        def unchunk(parts: list[torch.Tensor]) -> torch.Tensor:
+            return torch.cat(parts)[:n_total].reshape(b, bag, -1)
+
+        if not self.pyramid:
+            return unchunk(outs)
+        return unchunk([o[0] for o in outs]), tuple(
+            unchunk([o[1][s] for o in outs]) for s in range(len(outs[0][1])))
 
     def forward(self, x: torch.Tensor, **head_kwargs):
+        if self.pyramid:
+            feats, pyramid = self.embed(x)
+            return self.head(feats, pyramid=pyramid, **head_kwargs)
         return self.head(self.embed(x), **head_kwargs)
 
 
 __all__ = ["BACKBONE_DIMS", "ImageMILModel", "ProjectedBackbone", "ResNet", "SimpleCNN",
-           "create_backbone"]
+           "create_backbone", "load_backbone_variables"]

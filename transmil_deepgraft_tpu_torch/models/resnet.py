@@ -1,9 +1,16 @@
-"""ResNets in feature mode (port of ``models/resnet.py``).
+"""The ResNet family (port of ``models/resnet.py``).
 
 The RetCCL ResNet50 (2048-d pooled features, ``retccl_resnet50``), the CLAM
 baseline truncated after layer3 (1024-d), ResNet18 (512-d, the
-``resnet18`` backbone of ``models/backbones``), and with ``in_channels`` the
-spatial ResNet50 MIL head's trunk (``models/spatial_resnet.py``). BatchNorm
+``resnet18`` backbone of ``models/backbones``), ResNet34, and with
+``in_channels`` the spatial ResNet50 MIL head's trunk
+(``models/spatial_resnet.py``). The reference's extensions are there as in
+JAX (ref ``ResNet.py:119-245``): a classifier (``num_classes``, a Linear or
+the ``NormedLinear`` cosine classifier), the ``mlp`` and ``two_branch``
+instance/group heads, the sigmoid spatial ``attention`` branch after
+layer4, and the forward's ``return_pyramid`` (the per-stage pooled
+features, for MONAI's ``att_trans_pyramid``) and ``return_spatial`` (the
+last stage's map, the GradCAM target). BatchNorm
 is :class:`BatchNorm2d`: the running statistics in eval mode, flax's
 train-mode rule otherwise. Inputs are NHWC, as in the JAX package; the
 convolutions run in NCHW (a channels-last view of the same memory). Module
@@ -65,6 +72,21 @@ def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, momentum=0.9)
 
 
+class NormedLinear(nn.Module):
+    """Cosine classifier ``normalize(x) @ normalize(W, axis=0)`` (ref
+    ``ResNet.py:119-128``); ``weight`` is (in, out), as in the reference and
+    flax. Initialized U[0, 2), flax's ``uniform(scale=2.0)``."""
+
+    def __init__(self, in_features: int, out_features: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.rand(in_features, out_features) * 2.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xn = x / (x.norm(dim=-1, keepdim=True) + 1e-12)
+        wn = self.weight / (self.weight.norm(dim=0, keepdim=True) + 1e-12)
+        return xn @ wn
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -112,44 +134,114 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+class AttentionBranch(nn.Module):
+    """The sigmoid spatial attention after layer4 (ref ``ResNet.py:236-245``):
+    ``n_blocks`` blocks at stride 1, then 1x1 convs to a one-channel map."""
+
+    def __init__(self, block: type, in_planes: int, planes: int = 512, n_blocks: int = 3) -> None:
+        super().__init__()
+        self.n_blocks = n_blocks
+        for i in range(n_blocks):
+            self.add_module(f"block{i}", block(in_planes, planes))
+        self.att_conv1, self.att_bn1 = _conv(in_planes, 128, 1), _bn(128)
+        self.att_conv2, self.att_bn2 = _conv(128, 1, 1), _bn(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = x
+        for i in range(self.n_blocks):
+            out = getattr(self, f"block{i}")(out)
+        out = F.relu(self.att_bn1(self.att_conv1(out)))
+        return torch.sigmoid(self.att_bn2(self.att_conv2(out)))
+
+
 class ResNet(nn.Module):
-    """NHWC ResNet in feature mode: (B, H, W, in_channels) -> (B, C) pooled
-    features."""
+    """NHWC ResNet: (B, H, W, in_channels) -> (B, C) pooled features, or
+    logits with ``num_classes`` (feature mode, fc = Identity, at 0). JAX's
+    ``attention_layers`` is not here: JAX never reads it (the branch always
+    has 3 blocks)."""
 
     def __init__(self, block: type = Bottleneck, layers: Sequence[int] = (3, 4, 6, 3),
-                 truncate_after: int = 4, in_channels: int = 3) -> None:
+                 truncate_after: int = 4, in_channels: int = 3, *, num_classes: int = 0,
+                 normlinear: bool = False, two_branch: bool = False, mlp: bool = False,
+                 attention: bool = False) -> None:
         super().__init__()
         self.truncate_after = truncate_after
+        self.num_classes, self.two_branch, self.mlp = num_classes, two_branch, mlp
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
-        self.block_names: list[str] = []
+        self.stages: list[list[str]] = []  # the block names of each stage
         in_planes = 64
         for stage in range(truncate_after):
             planes, stride = (64, 128, 256, 512)[stage], (1, 2, 2, 2)[stage]
+            self.stages.append([])
             for b in range(layers[stage]):
                 s = stride if b == 0 else 1
                 ds = b == 0 and (s != 1 or in_planes != planes * block.expansion)
                 name = f"layer{stage + 1}_{b}"
                 self.add_module(name, block(in_planes, planes, s, ds))
-                self.block_names.append(name)
+                self.stages[-1].append(name)
                 in_planes = planes * block.expansion
         self.feature_dim = in_planes
+        self.attention = attention and truncate_after == 4
+        if self.attention:
+            self.att_branch = AttentionBranch(block, in_planes)
+        if not num_classes:
+            return
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def linear(name: str, cin: int) -> None:
+            self.add_module(name, NormedLinear(cin, num_classes) if normlinear
+                            else nn.Linear(cin, num_classes))
+
+        if mlp:
+            self.fc_mlp0 = nn.Linear(in_planes, 2048)
+            linear("instDis", 2048)
+        else:
+            linear("fc", in_planes)
+        if two_branch:
+            linear("groupDis", 2048 if mlp else in_planes)
+
+    def forward(self, x: torch.Tensor, return_pyramid: bool = False,
+                return_spatial: bool = False):
+        """(B, H, W, C) NHWC -> (B, D) pooled features or logits (a pair of
+        them with ``two_branch``). ``return_pyramid`` also gives the tuple of
+        the stages' pooled features (pooled, pyramid); ``return_spatial``
+        gives the last stage's (B, h, w, C) map before the pool instead."""
         out = x.permute(0, 3, 1, 2)  # NHWC memory seen as channels-last NCHW
         out = F.relu(self.bn1(self.conv1(out)))
         out = F.max_pool2d(out, 3, stride=2, padding=1)
-        for name in self.block_names:
-            out = getattr(self, name)(out)
-        return out.mean(dim=(2, 3))
+        pyramid = []
+        for names in self.stages:
+            for name in names:
+                out = getattr(self, name)(out)
+            if return_pyramid:
+                pyramid.append(out.mean(dim=(2, 3)))
+        if self.attention:
+            out = out + self.att_branch(out) * out
+        if return_spatial:
+            return out.permute(0, 2, 3, 1)
+        out = out.mean(dim=(2, 3))
+        if return_pyramid:
+            return out, tuple(pyramid)
+        if not self.num_classes:
+            return out
+        if self.mlp:
+            out = F.relu(self.fc_mlp0(out))
+            x1 = self.instDis(out)
+        else:
+            x1 = self.fc(out)
+        return (x1, self.groupDis(out)) if self.two_branch else x1
 
 
-def resnet18() -> ResNet:
-    return ResNet(BasicBlock, (2, 2, 2, 2))
+def resnet18(**kwargs) -> ResNet:
+    return ResNet(BasicBlock, (2, 2, 2, 2), **kwargs)
 
 
-def resnet50(truncate_after: int = 4) -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3), truncate_after=truncate_after)
+def resnet34(**kwargs) -> ResNet:
+    return ResNet(BasicBlock, (3, 4, 6, 3), **kwargs)
+
+
+def resnet50(truncate_after: int = 4, **kwargs) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 6, 3), truncate_after=truncate_after, **kwargs)
 
 
 def retccl_resnet50() -> ResNet:

@@ -23,10 +23,15 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
   and the pseudo-bag split draws from a ``torch.Generator`` seeded from
   ``seed + 2`` (JAX's ``shuffle`` stream), the identity under
   ``train_deterministic``;
-- BatchNorm heads (CTMIL, ``resnet50``) train with flax's BatchNorm rule
-  and keep their running statistics in every checkpoint (JAX's Trainer
-  cannot train them, ROADMAP C6); MDMIL is refused, as JAX's Trainer fails
-  on it (its forward returns the attention by default, ROADMAP C9);
+- BatchNorm models (the CTMIL and ``resnet50`` heads, the classic tile
+  classifiers over resnet18, efficientnet and inception) train with flax's
+  BatchNorm rule and keep their running statistics in every checkpoint
+  (JAX's Trainer cannot train them, ROADMAP C6); MDMIL is refused, as JAX's
+  Trainer fails on it (its forward returns the attention by default,
+  ROADMAP C9);
+- the classic per-tile pipeline (a ``models/classic`` classifier on the
+  ``tiles`` variant, ``tile_level=True``): the per-tile probabilities
+  aggregate to slides, then patients (``aggregate_tiles_to_patients``);
 - validation/test: per-slide probabilities in eval mode (TransMIL's fused
   K1/K2 path on the card), slide CE loss, slide and patient AUROC (positive
   slide filter), classification reports, Youden-J thresholds persisted to
@@ -45,7 +50,7 @@ Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 of the JAX Trainer.
 
 Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
-attention tile export, tile-level aggregation and meshes.
+attention tile export and meshes.
 """
 
 from __future__ import annotations
@@ -67,16 +72,18 @@ import torch.nn.functional as F
 from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
 from transmil_deepgraft_tpu_torch.data.pipeline import device_prefetch, to_device
 from transmil_deepgraft_tpu_torch.models import head_logits
-from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, ProjectedBackbone
+from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, load_backbone_variables
+from transmil_deepgraft_tpu_torch.models.classic import ClassicTileClassifier
 from transmil_deepgraft_tpu_torch.models.dtfd import PseudoBagShuffle
 from transmil_deepgraft_tpu_torch.models.layers import Dropout
-from transmil_deepgraft_tpu_torch.train.aggregation import aggregate_patients
+from transmil_deepgraft_tpu_torch.train.aggregation import (
+    aggregate_patients, aggregate_tiles_to_patients)
 from transmil_deepgraft_tpu_torch.train.losses import LossFn
 from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_report, youden_j_threshold
 from transmil_deepgraft_tpu_torch.train.optimizers import Optimizer
 from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager, read_checkpoint
 from transmil_deepgraft_tpu_torch.utils.jax_params import (
-    backbone_state_dict_from_jax, head_state_dict_from_jax, optimizer_state_from_jax)
+    classic_state_dict_from_jax, head_state_dict_from_jax, optimizer_state_from_jax)
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
 # Class names per task (ref ``code/utils/utils.py:37-53``), for the result CSVs.
@@ -102,7 +109,7 @@ class TrainerConfig:
     ``export_topk_tiles`` have no effect in the port; ``prefetch_batches``
     is the prefetch thread's depth, and 0 counts as 1 (the port always
     stages batches on that thread); ``swa``,
-    ``autosave_steps``, ``use_tensorboard``, ``tile_level`` and
+    ``autosave_steps``, ``use_tensorboard`` and
     ``ckpt_backend='orbax'`` are refused (not ported yet, ROADMAP A5).
     Checkpoints are ``torch.save`` files whatever ``ckpt_backend`` says."""
 
@@ -139,7 +146,7 @@ class TrainerConfig:
 
 def _refuse_unported(cfg: TrainerConfig) -> None:
     unported = {"swa": cfg.swa, "autosave_steps": cfg.autosave_steps > 0,
-                "use_tensorboard": cfg.use_tensorboard, "tile_level": cfg.tile_level,
+                "use_tensorboard": cfg.use_tensorboard,
                 "ckpt_backend='orbax'": cfg.ckpt_backend == "orbax"}
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -268,17 +275,10 @@ class Trainer:
         """Load pretrained weights (flax-layout ``{'params', 'batch_stats'}``,
         e.g. ``utils/torch_weights.load_image_backbone_variables``) into the
         frozen backbone of an ``ImageMILModel`` (JAX ``train/trainer.py:
-        270-301``). Raw ResNet weights for a ``ProjectedBackbone`` go into its
-        inner ResNet and keep the projection; weights of stages the backbone
-        does not have are ignored."""
+        270-301``), by ``models/backbones.load_backbone_variables``."""
         if not isinstance(self.model, ImageMILModel):
             raise ValueError("model has no in-graph 'backbone' submodule")
-        backbone = self.model.backbone
-        if isinstance(backbone, ProjectedBackbone) and "proj" not in variables["params"]:
-            backbone = backbone.backbone
-        own = backbone.state_dict()
-        backbone.load_state_dict({k: v for k, v in backbone_state_dict_from_jax(variables).items()
-                                  if k in own})
+        load_backbone_variables(self.model.backbone, variables)
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> dict[str, float]:
@@ -405,6 +405,15 @@ class Trainer:
         return history
 
     # --------------------------------------------------------- checkpoints
+    def _jax_state_dict(self, params: Any, stats: Any) -> dict:
+        """A JAX Trainer's ``params`` (and BatchNorm ``batch_stats``) -> the
+        model's state dict: a classic tile classifier by the flax tree's
+        walk, a head by its carry-over table."""
+        if isinstance(self.model, ClassicTileClassifier):
+            return classic_state_dict_from_jax({"params": params, "batch_stats": stats or {}},
+                                               self.model)
+        return head_state_dict_from_jax(self.model_name, params, self._in_features(), stats)
+
     def _in_features(self) -> int:
         """The head's input width: the in_features of its first Linear or
         Conv1d (the fc1 MLP, Chowder's scorer, MONAI's ``myfc``)."""
@@ -423,8 +432,7 @@ class Trainer:
             self.model.load_state_dict(obj["model"])
         elif "params" in obj:
             stats = (obj.get("model_state") or {}).get("batch_stats") or None
-            self.model.load_state_dict(head_state_dict_from_jax(
-                self.model_name, obj["params"], self._in_features(), stats))
+            self.model.load_state_dict(self._jax_state_dict(obj["params"], stats))
         else:
             raise ValueError(f"no weights in checkpoint {path}")
 
@@ -443,7 +451,8 @@ class Trainer:
         else:
             names = [n for n, _ in self.model.named_parameters()]
             state = optimizer_state_from_jax(obj["opt_state"], self._in_features(), names,
-                                             self.model_name)
+                                             self.model_name,
+                                             lambda tree: self._jax_state_dict(tree, None))
         self.tx.load_state_dict(state)
         fit = obj["fit"]
         self._resume_fit_state = {k: type(v)(np.asarray(fit[k])) for k, v in _FIT_START.items()
@@ -475,7 +484,8 @@ class Trainer:
         logp = logits - np.log(np.exp(logits - mx).sum(-1, keepdims=True)) - mx
         loss = float(-np.mean(logp[np.arange(len(labels)), labels]))
 
-        agg = aggregate_patients(probs, labels, names, patients, self.n_classes)
+        aggregate = aggregate_tiles_to_patients if self.cfg.tile_level else aggregate_patients
+        agg = aggregate(probs, labels, names, patients, self.n_classes)
         thresholds = self._thresholds(mode, agg)
         result = {
             "loss": loss,

@@ -13,8 +13,10 @@ The other heads (:func:`head_state_dict_from_jax`): one table a head,
 statistics are ``batch_stats`` leaves); ``utils/torch_weights`` reads the
 same tables backwards for the reference's ``.pth`` converters.
 
-ResNet (:func:`resnet_state_dict_from_jax`), the tile backbones of
-``models/backbones`` (:func:`backbone_state_dict_from_jax`) and the int8
+The ResNets, the tile backbones of ``models/backbones`` (ViT, EfficientNet,
+InceptionV3, the projections) and the classic tile classifiers, whose port
+modules carry the flax names: :func:`backbone_state_dict_from_jax` walks the
+flax tree, :func:`variables_from_module` walks the module back. The int8
 ResNet50 (:func:`qresnet_from_jax`) likewise. :func:`optimizer_state_from_jax` carries
 the optax state of ``create_optimizer`` (moments, slow weights, counters, the
 gradient accumulator and the plateau scale) onto the port's optimizer, and
@@ -24,7 +26,7 @@ that of ``create_dtfd_optimizer`` (two masked Adams) onto its
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -267,10 +269,17 @@ def head_layout(model_name: str, in_features: int, *, depth: int = 4,
         return out
     if model_name in ("AttTrans", "MonaiMILModel"):
         out = _dense("myfc", "myfc")
-        if mil_mode in ("att", "att_trans"):
+        if mil_mode not in ("mean", "max"):
             out += _dense("attention_0", "attention.0") + _dense("attention_1", "attention.2")
         if mil_mode == "att_trans":
             out += _torch_encoder_layout("transformer", "transformer", trans_blocks)
+        if mil_mode == "att_trans_pyramid":  # the cascade, ref MonaiMILModel.py:127-155
+            out += _torch_encoder_layout("transformer_0", "transformer.0", trans_blocks)
+            for i in (1, 2):
+                out += _dense(f"transformer_{i}_proj", f"transformer.{i}.0")
+                out += _torch_encoder_layout(f"transformer_{i}", f"transformer.{i}.1",
+                                             trans_blocks)
+            out += _torch_encoder_layout("transformer_3", "transformer.3", trans_blocks)
         return out
     if model_name == "RoFormerMIL":
         out = [("cls_token", "cls_token", "id")]
@@ -298,6 +307,8 @@ def _layout_knobs(model_name: str, params: Mapping[str, Any]) -> dict:
     if model_name in ("AttTrans", "MonaiMILModel"):
         if "transformer" in params:
             return {"mil_mode": "att_trans", "trans_blocks": len(params["transformer"])}
+        if "transformer_0" in params:
+            return {"mil_mode": "att_trans_pyramid", "trans_blocks": len(params["transformer_0"])}
         return {"mil_mode": "att" if "attention_0" in params else "mean"}
     return {}
 
@@ -345,65 +356,55 @@ def head_state_dict_from_jax(model_name: str, params: Mapping[str, Any], in_feat
     return sd
 
 
-def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax ResNet ``{'params', 'batch_stats'}`` (numpy leaves) -> the port's
-    ``models/resnet.ResNet`` ``state_dict``: HWIO conv kernels become OIHW,
-    BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var."""
-    params, stats = variables["params"], variables["batch_stats"]
+def backbone_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ``{'params', 'batch_stats'}`` (numpy leaves) of a module whose
+    port names its submodules as flax does (the ResNets, the tile backbones
+    of ``models/backbones``, the ViT, EfficientNet, InceptionV3, the classic
+    tile classifiers) -> the port module's ``state_dict``, by walking the
+    tree: a node with a ``kernel`` is a Conv (HWIO -> OIHW, the depthwise
+    HW1C -> C1HW alike) or a Dense ((in, out) -> (out, in)); a node with a
+    ``scale`` is a BatchNorm when ``batch_stats`` has it (weight, bias,
+    running_mean, running_var), else a LayerNorm; any other leaf (the ViT's
+    ``cls_token`` and ``pos_embed``, ``NormedLinear``'s (in, out) weight) is a
+    parameter as it is."""
     sd: dict[str, np.ndarray] = {}
 
     def walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str) -> None:
         for name, sub in p.items():
             key = f"{prefix}{name}"
-            if "kernel" in sub:
-                sd[f"{key}.weight"] = np.asarray(sub["kernel"]).transpose(3, 2, 0, 1)
+            if not isinstance(sub, Mapping):
+                sd[key] = np.asarray(sub)
+            elif "kernel" in sub:
+                k = np.asarray(sub["kernel"])
+                sd[f"{key}.weight"] = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                if "bias" in sub:
+                    sd[f"{key}.bias"] = np.asarray(sub["bias"])
             elif "scale" in sub:
                 sd[f"{key}.weight"] = np.asarray(sub["scale"])
                 sd[f"{key}.bias"] = np.asarray(sub["bias"])
-                sd[f"{key}.running_mean"] = np.asarray(s[name]["mean"])
-                sd[f"{key}.running_var"] = np.asarray(s[name]["var"])
+                if name in s:
+                    sd[f"{key}.running_mean"] = np.asarray(s[name]["mean"])
+                    sd[f"{key}.running_var"] = np.asarray(s[name]["var"])
             else:
-                walk(sub, s[name], f"{key}.")
+                walk(sub, s.get(name, {}), f"{key}.")
 
-    walk(params, stats, "")
+    walk(variables["params"], variables.get("batch_stats", {}), "")
     out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
     return out
 
 
-def backbone_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax variables of a tile backbone of ``models/backbones`` -> the port
-    module's ``state_dict``, by the tree's shape: a ``ProjectedBackbone``
-    (``resnet18``: the ResNet under ``backbone``, a Dense ``proj``, JAX
-    ``train/trainer.py:288-296``), the ``SimpleCNN`` (``conv1``, ``conv2``
-    with biases and the ``fc`` Dense, whose input is flattened in (H, W, C)
-    order on both sides), or a bare ResNet."""
-    params = variables["params"]
-    if "proj" in params:
-        inner = resnet_state_dict_from_jax({"params": params["backbone"],
-                                            "batch_stats": variables["batch_stats"]["backbone"]})
-        sd = {f"backbone.{k}": v for k, v in inner.items()}
-        sd["proj.weight"] = torch.from_numpy(np.array(params["proj"]["kernel"], np.float32).T)
-        sd["proj.bias"] = torch.from_numpy(np.array(params["proj"]["bias"], np.float32))
-        return sd
-    if "fc" in params:
-        sd = {}
-        for conv in ("conv1", "conv2"):
-            sd[f"{conv}.weight"] = np.asarray(params[conv]["kernel"]).transpose(3, 2, 0, 1)
-            sd[f"{conv}.bias"] = np.asarray(params[conv]["bias"])
-        sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
-        sd["fc.bias"] = np.asarray(params["fc"]["bias"])
-        return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
-    return resnet_state_dict_from_jax(variables)
+resnet_state_dict_from_jax = backbone_state_dict_from_jax  # the ResNets' is the same walk
 
 
 def variables_from_module(module: torch.nn.Module) -> dict:
-    """The inverse of :func:`backbone_state_dict_from_jax`: a tile
-    backbone's weights -> flax-layout ``{'params', 'batch_stats'}`` (numpy),
-    the form ``models/resnet_int8.build_qresnet50`` takes. Conv kernels
-    become HWIO, Linear weights (in, out), BatchNorm weight/bias/running
-    statistics scale/bias and batch_stats mean/var."""
+    """The inverse of :func:`backbone_state_dict_from_jax`: a module's
+    weights -> flax-layout ``{'params', 'batch_stats'}`` (numpy), the form
+    ``models/resnet_int8.build_qresnet50`` takes. Conv kernels become HWIO,
+    Linear weights (in, out), BatchNorm weight/bias/running statistics
+    scale/bias and batch_stats mean/var, LayerNorm weight/bias scale/bias,
+    the other parameters stay as they are."""
     params: dict = {}
     stats: dict = {}
 
@@ -414,20 +415,69 @@ def variables_from_module(module: torch.nn.Module) -> dict:
         node[leaf] = t.detach().cpu().numpy().copy()
 
     for name, m in module.named_modules():
-        path = name.split(".")
+        path = name.split(".") if name else []
         if isinstance(m, torch.nn.Conv2d):
             put(params, path, "kernel", m.weight.permute(2, 3, 1, 0))
         elif isinstance(m, torch.nn.Linear):
             put(params, path, "kernel", m.weight.t())
-        elif isinstance(m, torch.nn.BatchNorm2d):
+        elif isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm)):
             put(params, path, "scale", m.weight)
-            put(stats, path, "mean", m.running_mean)
-            put(stats, path, "var", m.running_var)
+            if isinstance(m, torch.nn.BatchNorm2d):
+                put(stats, path, "mean", m.running_mean)
+                put(stats, path, "var", m.running_var)
         else:
+            for leaf, p in m.named_parameters(recurse=False):
+                put(params, path, leaf, p)
             continue
         if m.bias is not None:
             put(params, path, "bias", m.bias)
     return {"params": params, "batch_stats": stats}
+
+
+def _classic_names(backbone: torch.nn.Module) -> tuple[str, Optional[str]]:
+    """Flax's names of a classic classifier's network and of its projection
+    (None without one): the class names, numbered 0."""
+    from transmil_deepgraft_tpu_torch.models.backbones import ProjectedBackbone
+
+    if isinstance(backbone, ProjectedBackbone):
+        return f"{type(backbone.backbone).__name__}_0", "ProjectedBackbone_0"
+    return f"{type(backbone).__name__}_0", None
+
+
+def classic_state_dict_from_jax(variables: Mapping[str, Any],
+                                model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Flax variables of ``models/classic.ClassicTileClassifier`` -> the
+    port model's ``state_dict``: flax's ``<Network>_0`` (and
+    ``ProjectedBackbone_0/proj``, a sibling there) become ``backbone``."""
+    net, proj = _classic_names(model.backbone)
+
+    def regroup(tree: Mapping[str, Any]) -> dict:
+        out = {k: v for k, v in tree.items() if k not in (net, proj)}
+        if net in tree:
+            out["backbone"] = ({"backbone": tree[net], **(tree.get(proj) or {})} if proj
+                               else tree[net])
+        return out
+
+    return backbone_state_dict_from_jax({"params": regroup(variables["params"]),
+                                       "batch_stats": regroup(variables.get("batch_stats", {}))})
+
+
+def classic_variables_from_module(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`classic_state_dict_from_jax`: flax's tree of
+    the classic classifier (numpy)."""
+    net, proj = _classic_names(model.backbone)
+    variables = variables_from_module(model)
+    for tree in variables.values():
+        inner = tree.pop("backbone", None)
+        if inner is None:
+            continue
+        if proj:
+            tree[net] = inner.pop("backbone")
+            if inner:
+                tree[proj] = inner
+        else:
+            tree[net] = inner
+    return variables
 
 
 def qresnet_from_jax(q: Any):
@@ -470,13 +520,16 @@ def _optax_fields(node: Any, found: dict) -> None:
 
 
 def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
-                             model_name: str = "TransMIL") -> dict:
+                             model_name: str = "TransMIL",
+                             state_dict_of: Optional[Callable[[Any], dict]] = None) -> dict:
     """The optax state of the JAX package's ``create_optimizer`` (numpy
     leaves, e.g. after ``jax.device_get``, or the ``opt_state`` map of a JAX
     ``last.ckpt``) -> a state for the port's
     ``Optimizer.load_state_dict``, each per-parameter list ordered as
     ``names`` (the model's ``named_parameters`` order); the moment trees
-    have the params' layout, so ``model_name``'s carry-over maps them.
+    have the params' layout, so ``model_name``'s carry-over maps them (or
+    ``state_dict_of``, a params tree -> state dict, for a model that is no
+    head: the classic tile classifiers).
 
     Reads ``ScaleByAdamState`` (count, mu, nu), ``TraceState`` (trace),
     ``LookaheadState`` (slow_params, step), ``MultiStepsState`` (mini_step,
@@ -489,7 +542,8 @@ def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
     _optax_fields(opt_state, found)
 
     def per_param(tree: Any) -> list[torch.Tensor]:
-        sd = head_state_dict_from_jax(model_name, tree, in_features)
+        sd = (state_dict_of(tree) if state_dict_of is not None
+              else head_state_dict_from_jax(model_name, tree, in_features))
         return [sd[name] for name in names]
 
     state = {"count": int(np.asarray(found.get("count", 0))),

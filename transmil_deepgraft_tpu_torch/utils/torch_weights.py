@@ -1,7 +1,8 @@
 """Torch state dicts -> flax-layout parameter trees (the port's copy of the
-TransMIL, ResNet, AttMIL, TransformerMIL, Chowder, MONAI MIL, CLAM, DTFD,
-MDMIL and CTMIL converters of ``utils/torch_weights.py``, and a RoFormerMIL
-one of its own; the other ported heads read their carry-over table).
+TransMIL, ResNet, EfficientNet, ViT, Inception, AttMIL, TransformerMIL,
+Chowder, MONAI MIL, CLAM, DTFD, MDMIL and CTMIL converters of
+``utils/torch_weights.py``, and a RoFormerMIL one of its own; the other
+ported heads read their carry-over table).
 
 The reference's checkpoints (``retccl_best_ckpt.pth``, torchvision ResNets,
 TransMIL Lightning checkpoints, the port's own trainer checkpoints, which use
@@ -201,6 +202,126 @@ def _nest(flat: Mapping[str, Any]) -> dict:
     return nested
 
 
+def _nest_paths(flat: Mapping[str, Any]) -> dict:
+    """``{"a.b.c": leaf}`` -> nested dicts (``_nest`` without merging)."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def convert_efficientnet_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torchvision-layout EfficientNet-B0 state dict (``features.{i}.{b}.block.
+    {j}...``) -> flax-layout ``{'params', 'batch_stats'}`` of
+    ``models/efficientnet.EfficientNet``. Shape-agnostic: the standard B0 SE
+    widths and NVIDIA's 'widese' ones convert alike (whether the backbone
+    takes them is another matter, ROADMAP C14)."""
+    from transmil_deepgraft_tpu_torch.models.efficientnet import B0_STAGES
+
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    params: dict = {}
+    stats: dict = {}
+
+    def conv(dst: str, src: str) -> None:
+        params[dst] = {"kernel": _np(sd[f"{src}.weight"]).transpose(2, 3, 1, 0)}
+        if f"{src}.bias" in sd:
+            params[dst]["bias"] = _np(sd[f"{src}.bias"])
+
+    def bn(dst: str, src: str) -> None:
+        params[dst] = {"scale": _np(sd[f"{src}.weight"]), "bias": _np(sd[f"{src}.bias"])}
+        stats[dst] = {"mean": _np(sd[f"{src}.running_mean"]), "var": _np(sd[f"{src}.running_var"])}
+
+    conv("stem_conv", "features.0.0")
+    bn("stem_bn", "features.0.1")
+    for si, (e, _k, _s, _c, r) in enumerate(B0_STAGES):
+        for b in range(r):
+            t, f = f"features.{si + 1}.{b}.block", f"stage{si}_block{b}"
+            idx = 0
+            if e != 1:
+                conv(f"{f}.expand_conv", f"{t}.{idx}.0")
+                bn(f"{f}.expand_bn", f"{t}.{idx}.1")
+                idx += 1
+            conv(f"{f}.dw_conv", f"{t}.{idx}.0")
+            bn(f"{f}.dw_bn", f"{t}.{idx}.1")
+            conv(f"{f}.se.reduce", f"{t}.{idx + 1}.fc1")
+            conv(f"{f}.se.expand", f"{t}.{idx + 1}.fc2")
+            conv(f"{f}.project_conv", f"{t}.{idx + 2}.0")
+            bn(f"{f}.project_bn", f"{t}.{idx + 2}.1")
+    conv("head_conv", "features.8.0")
+    bn("head_bn", "features.8.1")
+    if "classifier.1.weight" in sd:
+        params["classifier"] = {"kernel": _np(sd["classifier.1.weight"]).T,
+                                "bias": _np(sd["classifier.1.bias"])}
+    return {"params": _nest_paths(params), "batch_stats": _nest_paths(stats)}
+
+
+def convert_vit_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """DINO / timm ViT state dict (``facebook/dino-vitb16``'s names:
+    ``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ``blocks.{i}.mlp.fc1`` ...)
+    -> flax-layout ``{'params'}`` of ``models/vit.VisionTransformer``."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+
+    def lin(src: str) -> dict:
+        return {"kernel": _np(sd[f"{src}.weight"]).T, "bias": _np(sd[f"{src}.bias"])}
+
+    def ln(src: str) -> dict:
+        return {"scale": _np(sd[f"{src}.weight"]), "bias": _np(sd[f"{src}.bias"])}
+
+    p: dict = {
+        "cls_token": _np(sd["cls_token"]),
+        "pos_embed": _np(sd["pos_embed"]),
+        "patch_embed": {"kernel": _np(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+                        "bias": _np(sd["patch_embed.proj.bias"])},
+        "norm": ln("norm"),
+    }
+    for i in range(_count(sd, "blocks.{}.norm1.weight")):
+        b = f"blocks.{i}"
+        p[f"block{i}"] = {"norm1": ln(f"{b}.norm1"), "norm2": ln(f"{b}.norm2"),
+                          "qkv": lin(f"{b}.attn.qkv"), "proj": lin(f"{b}.attn.proj"),
+                          "fc1": lin(f"{b}.mlp.fc1"), "fc2": lin(f"{b}.mlp.fc2")}
+    if "head.weight" in sd:
+        p["head"] = lin("head")
+    return {"params": p}
+
+
+def convert_inception_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """torchvision ``inception_v3`` state dict -> flax-layout ``{'params',
+    'batch_stats'}`` of ``models/inception.InceptionV3``, whose module names
+    are torchvision's: a conv/bn/fc walk. ``AuxLogits.*`` (the train-time
+    classifier) and ``num_batches_tracked`` are not read."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list[str], value) -> None:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        if parts[0].startswith("module") or parts[0] == "model":
+            parts = parts[1:]
+        if parts[0] == "AuxLogits":
+            continue
+        v = _np(value)
+        leaf = parts[-1]
+        mod = parts[-2] if len(parts) >= 2 else ""
+        if mod == "conv" and leaf == "weight":
+            put(params, parts[:-1] + ["kernel"], v.transpose(2, 3, 1, 0))
+        elif mod == "bn":
+            _put_bn(params, stats, parts[:-1], leaf, v)
+        elif parts[0] == "fc" and leaf == "weight":
+            put(params, ["fc", "kernel"], v.T)
+        elif parts[0] == "fc":
+            put(params, ["fc", "bias"], v)
+    return {"params": params, "batch_stats": stats}
+
+
 def _from_layout(state_dict: Mapping[str, Any], model_name: str, in_features: int,
                  **knobs: Any) -> dict:
     """``{'params': ...}`` through the head's carry-over table, and
@@ -247,11 +368,10 @@ def convert_monai_mil_state_dict(state_dict: Mapping[str, Any],
     """torch MONAI MILModel head (ref ``MonaiMILModel.py:11-232``) ->
     ``{'params': ...}``; the encoder's depth comes from the keys. Backbone
     keys (``net.*``) are not read."""
-    if mil_mode == "att_trans_pyramid":
-        raise NotImplementedError("MonaiMIL att_trans_pyramid is not ported yet (ROADMAP A8)")
-    blocks = _count(state_dict, "transformer.layers.{}.self_attn.in_proj_weight")
-    if mil_mode == "att_trans" and not blocks:
-        raise KeyError("no encoder layers under 'transformer.'")
+    prefix = "transformer.0." if mil_mode == "att_trans_pyramid" else "transformer."
+    blocks = _count(state_dict, prefix + "layers.{}.self_attn.in_proj_weight")
+    if mil_mode in ("att_trans", "att_trans_pyramid") and not blocks:
+        raise KeyError(f"no encoder layers under '{prefix}'")
     return _from_layout(state_dict, "AttTrans", 0, mil_mode=mil_mode, trans_blocks=blocks)
 
 
@@ -308,6 +428,7 @@ def convert_head_state_dict(state_dict: Mapping[str, Any], model_name: str,
         # so the layout of one is the other's (the mode is a knob of the head)
         keys = {k.removeprefix("model.") for k in state_dict}
         parts = ("att_trans" if "transformer.layers.0.norm1.weight" in keys
+                 else "att_trans_pyramid" if "transformer.0.layers.0.norm1.weight" in keys
                  else "att" if "attention.0.weight" in keys else "mean")
         return convert_monai_mil_state_dict(state_dict, parts)
     if model_name in ("CLAM_SB", "CLAM_MB"):  # the class count of the gate's last Linear
@@ -375,14 +496,26 @@ def load_backbone_variables(path: str | Path) -> dict:
     raise ValueError(f"unrecognized backbone checkpoint structure in {path}")
 
 
+def convert_backbone_state_dict(state_dict: Mapping[str, Any], backbone_name: str) -> dict:
+    """A tile backbone's torch state dict -> flax-layout ``{'params',
+    'batch_stats'}``, converted by backbone (JAX ``cli/train.py``
+    ``_load_backbone_variables``): ResNet names for 'retccl', 'resnet50' and
+    'resnet18', torchvision's EfficientNet-B0 for 'efficientnet', DINO/timm
+    for 'vit'/'dino', torchvision's Inception-v3 for 'inception'."""
+    converters = {"retccl": convert_resnet_state_dict, "resnet50": convert_resnet_state_dict,
+                  "resnet18": convert_resnet_state_dict,
+                  "efficientnet": convert_efficientnet_state_dict,
+                  "vit": convert_vit_state_dict, "dino": convert_vit_state_dict,
+                  "inception": convert_inception_state_dict}
+    if backbone_name not in converters:
+        raise ValueError(f"no torch converter for backbone {backbone_name!r}")
+    return converters[backbone_name](state_dict)
+
+
 def load_image_backbone_variables(path: str | Path, backbone_name: str) -> dict:
-    """A tile backbone's weights for the ``images`` variant (JAX
-    ``cli/train.py`` ``_load_backbone_variables``): a torch ``.pth``/``.pt``
-    ResNet state dict for 'retccl', 'resnet50' or 'resnet18' ->
-    flax-layout ``{'params', 'batch_stats'}``, or a flax msgpack variables
-    tree as it is."""
+    """A tile backbone's weights for the ``images`` variant: a torch
+    ``.pth``/``.pt`` state dict through :func:`convert_backbone_state_dict`,
+    or a flax msgpack variables tree as it is."""
     if str(path).endswith((".pth", ".pt")):
-        if backbone_name not in ("retccl", "resnet50", "resnet18"):
-            raise ValueError(f"no torch converter for backbone {backbone_name!r}")
-        return convert_resnet_state_dict(load_torch_checkpoint(str(path)))
+        return convert_backbone_state_dict(load_torch_checkpoint(str(path)), backbone_name)
     return read_flax_msgpack(Path(path).read_bytes())
