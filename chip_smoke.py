@@ -105,7 +105,15 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    --backbone dino|efficientnet`` from .pth files in the reference's names;
    ``cli.train`` of TransMIL_dino.yaml on the ``images`` variant (exact
    K1/K2 counts, logits held to the plain route); the classic per-tile route
-   (``Data.variant: tiles``) for vit, resnet18, efficientnet and inception.
+   (``Data.variant: tiles``) for vit, resnet18, efficientnet and inception;
+15. pretraining, heatmaps and the analysis CLIs (``phase_tools``):
+   ``cli.train`` with use_pallas and its test stage's top-k tiles,
+   ``cli.visualize`` of 4 slides of 2,000-12,000 tiles (exact B5/B6 counts,
+   no K1/K2 under GradCAM, the scores held to the all-plain route),
+   ``ImageVisualizer`` over ResNet50 (gradcam, eigencam) held to float64,
+   ``cli.pretrain`` (ResNet18, 64 tiles, batch 32) and ConvMixer,
+   ``cli.sustainability`` in both modes at the card's power limit,
+   ``cli.export_metrics``, and whether matplotlib is installed.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -254,6 +262,14 @@ CLASSIC_TILES = 64  # tiles a slide, and the train batch (the ViT config's 3,000
 CLASSIC_HEAD = "AttMIL"  # a bag head in Model.name: the tiles route JAX can run (ROADMAP C13)
 CLASSIC_HELD = 8  # tiles of the first step held to float64 on the CPU
 
+# the tools phase (phase 15)
+TOOLS_SPLITS = {"train": 8, "val": 4}  # 200-1,000-tile .npy bags
+TOOLS_TEST_TILES = (2000, 5333, 8666, 12000)  # the test slides: .h5 bags with grid coords
+TOOLS_BATCH = 4  # the train batch (the config's 64 bags would need 64 slides)
+IMAGE_VIZ_TILES = 64  # one slide of 224 px tiles through ResNet50 + TransMIL
+PRETRAIN_TILES, PRETRAIN_BATCH = 64, 32
+CONVMIXER = {"dim": 256, "depth": 8, "kernel_size": 9, "patch_size": 7}
+CONVMIXER_TILES = 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1605,7 +1621,11 @@ def phase_cli_train(rng, results: dict, dev) -> None:
     from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
 
     micro = CLI_EPOCHS * (CLI_SPLITS["train"] // CLI_BATCH)
-    evals = CLI_EPOCHS * CLI_SPLITS["val"] + CLI_SPLITS["test"]
+    # the val bags run the fused eval forward (K1/K2); the test stage's bags
+    # the return_attn forward of the top-k tile export (the standard layers:
+    # B5/B6 under use_pallas), as JAX's test stage does
+    evals = CLI_EPOCHS * CLI_SPLITS["val"]
+    tests = CLI_SPLITS["test"]
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -1622,12 +1642,13 @@ def phase_cli_train(rng, results: dict, dev) -> None:
         summary1, launches = launch_counts(lambda: train(run1, root / "run1" / "log"))
         run1_s = time.perf_counter() - t0
         expect("run 1 (bf16, as written): fit + test", launches, 0, 2 * evals)
+        if len(list((root / "run1" / "log" / "topk_tiles").glob("*_topk_tiles.csv"))) != tests:
+            raise AssertionError("run 1's test stage wrote no top-k tiles of every test slide")
         rows1 = metric_rows(root / "run1" / "log")
         ckpts = sorted((root / "run1" / "log" / "checkpoints").glob("*.ckpt"))
         tested, launches = launch_counts(lambda: train(run1, root / "run1" / "log",
                                                        "--stage", "test"))
-        expect(f"run 1 --stage test over {len(ckpts)} checkpoints", launches, 0,
-               2 * CLI_SPLITS["test"] * len(ckpts))
+        expect(f"run 1 --stage test over {len(ckpts)} checkpoints", launches, 0, 0)
         if sorted(tested) != [c.name for c in ckpts]:
             raise AssertionError(f"--stage test evaluated {sorted(tested)}, not {ckpts}")
 
@@ -1635,7 +1656,7 @@ def phase_cli_train(rng, results: dict, dev) -> None:
         run2 = cli_config(root, "run2", data, {"precision": 32}, {"use_pallas": True})
         summary2, launches = launch_counts(lambda: train(run2, root / "run2" / "log"))
         expect(f"run 2 (use_pallas, float32): fit + test, {micro // 2} optimizer steps", launches,
-               2 * micro, 2 * evals)
+               2 * micro + 2 * tests, 2 * evals)
         for name in launches:
             results[name]["launches"] = launches[name]
         rows2 = metric_rows(root / "run2" / "log")
@@ -2612,7 +2633,7 @@ def phase_extract(rng, results: dict, dev, variables) -> None:
 
         t0 = time.perf_counter()
         summary, launches = all_launch_counts(lambda: train(config_a, root / "run_a" / "log"))
-        evals = EXTRACT_SPLITS["val"] + EXTRACT_SPLITS["test"]
+        evals = EXTRACT_SPLITS["val"]  # the test slide runs the top-k export's return_attn forward
         log(f"[extract] cli.train A ({EXTRACT_CONFIG}, the extracted .h5 cohort "
             f"{EXTRACT_SPLITS}, 1 epoch): {time.perf_counter() - t0:.2f} s, test AUC "
             f"{summary['test_auc']:.4f}, launches {launches}")
@@ -3041,6 +3062,325 @@ def phase_backbones(rng, results: dict, dev) -> None:
     log(f"[env] backbones phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_tools(rng, results: dict, dev) -> None:
+    """Pretraining, heatmaps and the analysis CLIs on the card:
+
+    (a) ``cli.train`` of TransMIL_feat_norm_rest.yaml with ``use_pallas``,
+    float32, 1 epoch, a train batch of 4, over 8/4 .npy bags and 4 test
+    slides of 2,000-12,000 tiles with grid coords (.h5): the test stage's
+    top-k tile CSVs, exact B5/B6 and K1/K2 counts; ``cli.visualize`` of its
+    last.ckpt over the 4 test slides (their bags the reference's 10% draw,
+    200-1,200 tiles): JPEGs, top-k CSVs and ``heatmap_index.json``, B5/B6 4
+    a slide (the attention forward and the GradCAM forward; the backward is
+    torch ops), K1/K2 none; on the whole 12,000-tile slide the attention and
+    GradCAM tile scores held to the all-plain route within 1e-3 and timed:
+    the attention forward, GradCAM's forward and backward, the assembly
+    (heatmaps, ROI, JPEGs, CSV);
+    (b) ``ImageVisualizer`` over a seeded ResNet50 + TransMIL-2048 on one
+    slide of 64 tiles at 224 px, gradcam and eigencam: pixel CAMs held within
+    1e-3 to the CPU's (the ResNet50 in float64, the head's plain route), the
+    time;
+    (c) ``cli.pretrain`` (ResNet18, 224 px, 64 JPEG tiles, batch 32, 1
+    epoch): a finite loss, the checkpoint reloads; a step split into the
+    two views' augmentation (host) and the update (device); ConvMixer
+    (256, 8, 9, 7) on 32 tiles in eval mode, held to float64 on the CPU
+    within 1e-3 of its largest logit, timed beside its float32 bound;
+    (d) ``cli.sustainability`` in both modes at its default models and bags,
+    watts from the card's power limit: kWh held to seconds x watts / 3.6e6,
+    K1/K2 counts exact (TransMIL's eval forwards); (e) ``cli.export_metrics``
+    over (a)'s log tree; (f) whether matplotlib is installed (figures and the
+    regional plot need it; a heatmap JPEG does not)."""
+    import copy
+    import importlib.util
+    import io
+    import math
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from transmil_deepgraft_tpu_torch.cli import export_metrics as cli_export
+    from transmil_deepgraft_tpu_torch.cli import pretrain as cli_pretrain
+    from transmil_deepgraft_tpu_torch.cli import sustainability as cli_sus
+    from transmil_deepgraft_tpu_torch.cli import train as cli
+    from transmil_deepgraft_tpu_torch.cli import visualize as cli_viz
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.models.convmixer import ConvMixer
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet18, resnet50
+    from transmil_deepgraft_tpu_torch.models.simclr import SimCLRModel
+    from transmil_deepgraft_tpu_torch.train.optimizers import (
+        cosine_decay_schedule, create_scheduled_adamw)
+    from transmil_deepgraft_tpu_torch.train.simclr import (
+        load_simclr_checkpoint, simclr_step, two_view_batch)
+    from transmil_deepgraft_tpu_torch.utils import h5
+    from transmil_deepgraft_tpu_torch.utils.config import finalize_config, read_yaml
+    from transmil_deepgraft_tpu_torch.utils.export_metrics import (
+        bootstrap_auroc, read_patient_results)
+    from transmil_deepgraft_tpu_torch.utils.jax_params import backbone_state_dict_from_jax
+    from transmil_deepgraft_tpu_torch.utils.sustainability import card_watts
+    from transmil_deepgraft_tpu_torch.visualize.cam import compute_cam, normalize_cam
+    from transmil_deepgraft_tpu_torch.visualize.heatmap import (
+        ImageVisualizer, assemble_heatmap, attention_tile_scores, export_topk_tiles,
+        gradcam_tile_scores, roi_mask, save_heatmap_jpeg)
+
+    t_phase = time.perf_counter()
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"[tools] matplotlib on this machine: {'installed' if has_mpl else 'not installed'} "
+        f"(figures and the regional plot need it; heatmap JPEGs and DFF do not)")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # (a) a cohort: small train/val bags, test slides with grid coords
+        data = write_cohort(root, rng, splits=TOOLS_SPLITS, tag="tools")
+        labels = json.loads(Path(data["label_file"]).read_text())
+        patients = json.loads(Path(data["patient_dict"]).read_text())
+        labels["test"] = []
+        for i, n in enumerate(TOOLS_TEST_TILES):
+            name, side = f"test_{i:03d}", math.ceil(math.sqrt(n))
+            cells = rng.permutation(side * side)[:n]
+            x = rng.standard_normal((n, 2048), dtype=np.float32)
+            x[:, :64] += 0.25 * (i % 2)
+            h5.write(root / "data" / "FEATURES_RETCCL_2048" / f"{name}.h5",
+                     {"features": x, "coords": np.stack([cells % side, cells // side], 1)})
+            labels["test"].append([f"FEATURES_RETCCL_2048/{name}.h5", i % 2])
+            patients[name] = f"test_patient_{i:03d}"
+        Path(data["label_file"]).write_text(json.dumps(labels))
+        Path(data["patient_dict"]).write_text(json.dumps(patients))
+        config = cli_config(root, "tools", {**data, "train_dataloader": {"batch_size": TOOLS_BATCH}},
+                            {"precision": 32, "epochs": 1}, {"use_pallas": True})
+        log_dir = root / "tools" / "log"
+        micro, n_test = TOOLS_SPLITS["train"] // TOOLS_BATCH, len(TOOLS_TEST_TILES)
+        t0 = time.perf_counter()
+        summary, launches = all_launch_counts(lambda: quiet(cli.main, [
+            "--config", str(config), "--log_dir", str(log_dir), "--device", dev.type], "tools"))
+        log(f"[tools] cli.train (use_pallas, float32, 1 epoch, {TOOLS_SPLITS} + {n_test} test "
+            f"slides of {TOOLS_TEST_TILES} tiles): {time.perf_counter() - t0:.2f} s, test AUC "
+            f"{summary['test_auc']:.4f}, launches {launches}")
+        expect_launches_exactly("[tools] cli.train", launches,
+                                nystrom_landmark_attn=2 * micro + 2 * n_test,
+                                nystrom_query_lm=2 * micro + 2 * n_test,
+                                translayer_k1=2 * TOOLS_SPLITS["val"],
+                                translayer_k2=2 * TOOLS_SPLITS["val"])
+        if len(list((log_dir / "topk_tiles").glob("*_topk_tiles.csv"))) != n_test:
+            raise AssertionError("the test stage wrote no top-k tiles of every test slide")
+
+        ckpt = log_dir / "checkpoints" / "last.ckpt"
+        out_dir = root / "heatmaps"
+        t0 = time.perf_counter()
+        index, launches = all_launch_counts(lambda: quiet(cli_viz.main, [
+            "--config", str(config), "--ckpt", str(ckpt), "--log_dir", str(root / "viz_log"),
+            "--out_dir", str(out_dir), "--device", dev.type], "tools"))
+        viz_s = time.perf_counter() - t0
+        log(f"[tools] cli.visualize over {len(index)} test slides: {viz_s:.2f} s "
+            f"({viz_s / max(1, len(index)) * 1e3:.1f} ms a slide, the build and checkpoint "
+            f"included), launches {launches}")
+        expect_launches_exactly("[tools] cli.visualize", launches,
+                                nystrom_landmark_attn=4 * n_test, nystrom_query_lm=4 * n_test)
+        written = [Path(p) for r in index for p in r["paths"]]
+        if not (len(index) == n_test and all(p.stat().st_size > 0 for p in written)
+                and json.loads((out_dir / "heatmap_index.json").read_text()) == index
+                and len(list(out_dir.glob("*_topk_tiles.csv"))) == n_test):
+            raise AssertionError("cli.visualize did not write every slide's heatmaps")
+
+        # the largest slide: the kernel route against the all-plain route, timed
+        trainer = cli.build(finalize_config(read_yaml(config), config_path=config),
+                            str(root / "probe"), dev.type)
+        trainer.load_checkpoint(ckpt)
+        model = trainer.model.eval()
+        plain = create_model("TransMIL", 2, 2048, device=dev, use_pallas=False,
+                             fused_inference=False).eval()
+        plain.load_state_dict(model.state_dict())
+        # the whole slide (the test split's bags are the reference's 10% draw)
+        name = f"test_{n_test - 1:03d}"
+        slide = h5.read(root / "data" / "FEATURES_RETCCL_2048" / f"{name}.h5")
+        bag, coords = np.asarray(slide["features"]), np.asarray(slide["coords"])
+        x = torch.from_numpy(bag[None]).to(dev)
+
+        def attention(m):
+            with torch.inference_mode():
+                return attention_tile_scores(m(x, return_attn=True)[1])
+
+        def scores(m):
+            return attention(m), gradcam_tile_scores(m, x, 1)
+
+        (att, cam), launches = all_launch_counts(lambda: scores(model))
+        expect_launches_exactly("[tools] attention + GradCAM", launches, nystrom_landmark_attn=4,
+                                nystrom_query_lm=4)
+        (att_p, cam_p), launches = all_launch_counts(lambda: scores(plain))
+        expect_launches_exactly("[tools] attention + GradCAM, all plain", launches)
+        err_a, err_c = float(np.abs(att - att_p).max()), float(np.abs(cam - cam_p).max())
+
+        def grad_forward():
+            with torch.enable_grad():
+                model(x.detach().requires_grad_(True))
+
+        def assembly():
+            a_map, c_map = assemble_heatmap(coords, att), assemble_heatmap(coords, cam)
+            mask = roi_mask(assemble_heatmap(coords, np.ones(len(coords)), blur_sigma=0))
+            save_heatmap_jpeg(a_map * mask, root / "probe" / "a.jpg")
+            save_heatmap_jpeg(c_map * mask, root / "probe" / "c.jpg")
+            export_topk_tiles(att, coords, name, root / "probe" / "topk.csv")
+
+        attn_ms = cuda_ms(lambda: attention(model), reps=5, warmup=1)
+        fwd_ms = cuda_ms(grad_forward, reps=5, warmup=1)
+        cam_ms = cuda_ms(lambda: gradcam_tile_scores(model, x, 1), reps=5, warmup=1)
+        t0 = time.perf_counter()
+        assembly()
+        asm_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[tools] {name} ({len(bag)} tiles): attention vs the all-plain route max|d| "
+            f"{err_a:.3e}, GradCAM {err_c:.3e} (tol {TOL}); ms a slide: attention forward "
+            f"{attn_ms:.3f}, GradCAM {cam_ms:.3f} (its forward {fwd_ms:.3f}, backward + scores "
+            f"{cam_ms - fwd_ms:.3f}), assembly {asm_ms:.1f} (host); total "
+            f"{attn_ms + cam_ms + asm_ms:.1f} ms")
+        if not max(err_a, err_c) <= TOL:
+            raise AssertionError("the heatmap scores disagree with the all-plain route")
+        del trainer, model, plain, x
+
+        # (b) ImageVisualizer: ResNet50 + TransMIL on one slide of 224 px tiles
+        backbone = resnet50()
+        backbone.load_state_dict(backbone_state_dict_from_jax(random_resnet50_variables(rng)))
+        backbone = backbone.to(dev).eval()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(7)
+            head = create_model("TransMIL", 2, 2048, device=dev, use_pallas=True).eval()
+        pool = jpeg_pool(rng, n=max(IMAGE_VIZ_TILES, PRETRAIN_TILES))
+        tiles_u8 = np.stack([np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+                             for b in pool[:IMAGE_VIZ_TILES]])
+        tiles = normalize_tiles(tiles_u8)
+        grid = np.stack(np.unravel_index(np.arange(IMAGE_VIZ_TILES), (8, 8)), 1)[:, ::-1]
+        # the reference: the backbone in float64 on the CPU, the head's plain
+        # route there (TransMIL's residual stream is float32 by design)
+        backbone64 = copy.deepcopy(backbone).cpu().double()
+        head_cpu = create_model("TransMIL", 2, 2048, device="cpu", use_pallas=False).eval()
+        head_cpu.load_state_dict(head.state_dict())
+        with torch.no_grad():
+            maps = backbone64(torch.from_numpy(tiles).double(), return_spatial=True)
+        maps.requires_grad_(True)
+        (grads,) = torch.autograd.grad(head_cpu(maps.mean(dim=(1, 2))[None])[0, 1], maps)
+        for method in ("gradcam", "eigencam"):
+            viz = ImageVisualizer(backbone, head, root / f"image_{method}", chunk=IMAGE_VIZ_TILES,
+                                  tile_size=TILE, cam_method=method)
+            sync(dev)
+            t0 = time.perf_counter()
+            got, launches = all_launch_counts(lambda: viz.run_slide(tiles, grid, "slide"))
+            sec = time.perf_counter() - t0
+            expect_launches_exactly(f"[tools] ImageVisualizer {method}", launches,
+                                    nystrom_landmark_attn=4, nystrom_query_lm=4)
+            want = normalize_cam(compute_cam(method, maps.detach(), grads))
+            err = float(np.abs(got["pixel_cams"] - want).max())
+            log(f"[tools] ImageVisualizer ({method}, ResNet50 + TransMIL-2048, 1 slide of "
+                f"{IMAGE_VIZ_TILES} tiles at {TILE} px): {sec * 1e3:.1f} ms, pixel CAMs "
+                f"{got['pixel_cams'].shape} vs the CPU's (ResNet50 in float64) max|d| {err:.3e} "
+                f"(tol {TOL})")
+            if not err <= TOL:
+                raise AssertionError(f"the {method} pixel CAMs disagree with float64")
+        del backbone, head, backbone64, head_cpu, maps, grads
+
+        # (c) SimCLR pretraining and ConvMixer
+        tile_dir = root / "pretrain" / "BLOCKS" / "slide"
+        tile_dir.mkdir(parents=True)
+        for i, b in enumerate(pool[:PRETRAIN_TILES]):
+            (tile_dir / f"tile_({i % 8}-{i // 8}).jpg").write_bytes(b)
+        t0 = time.perf_counter()
+        out = quiet(cli_pretrain.main, ["--tiles_dir", str(tile_dir.parent), "--epochs", "1",
+                                        "--batch_size", str(PRETRAIN_BATCH), "--log_dir",
+                                        str(root / "simclr"), "--device", dev.type], "tools")
+        pretrain_s = time.perf_counter() - t0
+        sim = SimCLRModel(resnet18(num_classes=0), 512, proj_dim=128, hidden_dim=512)
+        load_simclr_checkpoint(sim, out["ckpt"])
+        if not (out["tiles"] == PRETRAIN_TILES and np.isfinite(out["final_loss"])):
+            raise AssertionError(f"cli.pretrain: {out}")
+        images = np.stack([np.asarray(Image.open(p).convert("RGB"))
+                           for p in sorted(tile_dir.glob("*.jpg"))])
+        aug = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        v1, v2 = two_view_batch(images, np.arange(PRETRAIN_BATCH), aug)
+        aug_ms = (time.perf_counter() - t0) * 1e3
+        sim = sim.to(dev)
+        tx = create_scheduled_adamw(sim, cosine_decay_schedule(5e-4, 100, 1.0 / 50), 1e-4)
+        d1, d2 = (torch.from_numpy(v).to(dev) for v in (v1, v2))
+        step_ms = cuda_ms(lambda: simclr_step(sim, tx, d1, d2, 0.07), reps=5, warmup=1)
+        log(f"[tools] cli.pretrain (ResNet18, {PRETRAIN_TILES} tiles at {TILE} px, batch "
+            f"{PRETRAIN_BATCH}, 1 epoch): {pretrain_s:.2f} s, final loss {out['final_loss']:.4f}, "
+            f"checkpoint reloads; a step: two views' augmentation {aug_ms:.1f} ms (host, one "
+            f"thread), update {step_ms:.3f} ms (device); host share "
+            f"{aug_ms / (aug_ms + step_ms):.3f}")
+        del sim, tx, d1, d2
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(11)
+            mixer = ConvMixer(**CONVMIXER, n_classes=2)
+            for m in mixer.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.05)
+                    m.running_var.uniform_(0.8, 1.2)
+        xs = torch.from_numpy(normalize_tiles(tiles_u8[:CONVMIXER_TILES]))
+        mixer64 = copy.deepcopy(mixer).double().eval()
+        with torch.inference_mode():
+            want = mixer64(xs.double()).numpy()
+            mixer = mixer.to(dev).eval()
+            xd = xs.to(dev)
+            got = mixer(xd).cpu().numpy()
+            mixer_ms = cuda_ms(lambda: mixer(xd), reps=5, warmup=1)
+        err = float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+        d, depth, k, p = (CONVMIXER[key] for key in ("dim", "depth", "kernel_size", "patch_size"))
+        cells = CONVMIXER_TILES * (TILE // p) ** 2
+        flops = 2 * cells * d * (p * p * 3 + depth * (k * k + d))
+        nbytes = 4 * (xs.numel() + sum(t.numel() for t in mixer.state_dict().values()) +
+                      CONVMIXER_TILES * 2)
+        bound_ms, by = bound(flops, nbytes)
+        log(f"[tools] ConvMixer{tuple(CONVMIXER.values())} eval forward on {CONVMIXER_TILES} "
+            f"tiles at {TILE} px: {mixer_ms:.3f} ms, float32 bound {bound_ms:.3f} ms ({by}), "
+            f"{bound_ms / mixer_ms:.3f} of it; vs float64 on the CPU {err:.3e} of the largest "
+            f"logit (tol {TOL})")
+        if not err <= TOL:
+            raise AssertionError("ConvMixer disagrees with float64")
+        del mixer, xd
+
+        # (d) the energy sweep, watts from the card
+        watts = card_watts(dev)
+        sus_dir = root / "sustainability"
+        for mode in ("inference", "train"):
+            t0 = time.perf_counter()
+            _, launches = all_launch_counts(lambda: quiet(cli_sus.main, [
+                "--out_dir", str(sus_dir), "--mode", mode, "--device", dev.type,
+                *(["--regions"] if has_mpl else [])], "tools"))
+            sweep_s = time.perf_counter() - t0
+            rows = json.loads((sus_dir / f"sustainability_{mode}.json").read_text())
+            # TransMIL's eval forwards (a warm-up + the reps, a bag size) run K1/K2
+            sweep = cli_sus.make_parser().parse_args([])
+            per = 2 * (sweep.reps + 1) * len(sweep.bag_sizes) if mode == "inference" else 0
+            expect_launches_exactly(f"[tools] cli.sustainability {mode}", launches,
+                                    translayer_k1=per, translayer_k2=per)
+            worst = max(abs(r["kwh"] - r["seconds"] * watts / 3.6e6) for r in rows)
+            log(f"[tools] cli.sustainability {mode} at {watts} W: {sweep_s:.2f} s, seconds "
+                + ", ".join(f"{r['model']}/{r['bag_size']} {r['seconds']}" for r in rows)
+                + f"; kWh off seconds x watts / 3.6e6 by {worst:.3e}, launches {launches}")
+            if not worst <= 5e-5 * watts / 3.6e6:  # the rows' seconds are rounded to 4 decimals
+                raise AssertionError("the sweep's kWh is not seconds x watts / 3.6e6")
+
+        # (e) the metric export over (a)'s log tree
+        if has_mpl:
+            quiet(cli_export.main, ["--log_root", str(root / "tools"), "--task", "norm_rest", "--out_csv",
+                                    str(root / "combined.csv")], "tools")
+            log(f"[tools] cli.export_metrics: {(root / 'combined.csv').read_text().count(chr(10))} "
+                f"lines")
+        else:
+            try:
+                quiet(cli_export.main, ["--log_root", str(root / "tools"), "--task", "norm_rest", "--out_csv",
+                                        str(root / "combined.csv")], "tools")
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    raise
+                log(f"[tools] cli.export_metrics without matplotlib: ImportError ({e}), as JAX's")
+            else:
+                raise AssertionError("cli.export_metrics drew figures without matplotlib")
+        probs, targets, _ = read_patient_results(log_dir / "TEST_RESULT_PATIENT.csv",
+                                                 "norm_rest", 2)
+        log(f"[tools] bootstrap patient AUROC of (a)'s test stage: "
+            f"{bootstrap_auroc(probs, targets, 2, n_boot=200)}")
+    log(f"[env] tools phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3088,6 +3428,7 @@ def main() -> int:
     phase_zoo(rng, results, dev)
     phase_extract(rng, results, dev, variables)
     phase_backbones(rng, results, dev)
+    phase_tools(rng, results, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -6,10 +6,13 @@ Architecture (ref ``code/models/TransMIL.py:78-211``):
   fc1 MLP -> duplicate-pad bag to ceil(sqrt(N))^2 -> prepend cls token ->
   TransLayer1 -> PPEG -> TransLayer2 -> LayerNorm -> cls-token logits.
 
-In eval mode without ``return_attn`` both TransLayers run through
+In eval mode without ``return_attn``, and with no gradient asked of the
+forward (autograd off, or nothing it would differentiate), both TransLayers
+run through
 :func:`~transmil_deepgraft_tpu_torch.ops.translayer_kernel.fused_translayer`:
 its two CUDA kernels on a CUDA input, their plain versions on a CPU input.
-Training and ``return_attn`` run the standard layers (same parameters), as in
+Training, ``return_attn`` and a forward that takes a gradient (GradCAM's)
+run the standard layers (same parameters), as in
 the JAX package; with ``use_pallas=True`` their attention goes through the
 fused landmark kernels (B5/B6 on the card, analytic backward). ``return_attn=True`` also returns the layer-2 attention row
 for heatmaps, computed in O(N*m); ``attn_query='ref'`` reproduces the
@@ -86,7 +89,10 @@ class TransMILBody(nn.Module):
         h, grid_h, grid_w = duplicate_pad_square(h)
         h = torch.cat([self.cls_token.expand(h.shape[0], -1, -1), h.float()], dim=1)
 
-        fused = self.fused_inference and not self.training and row_offset is None
+        # the fused route has no backward (K1/K2 on the card): a forward that
+        # takes a gradient (GradCAM's) runs the standard layers
+        fused = (self.fused_inference and not self.training and row_offset is None
+                 and not (torch.is_grad_enabled() and h.requires_grad))
         h, _ = self._run_layer(self.layer1, h, fused, None)
         h = self.pos_layer(h, grid_h, grid_w)
 

@@ -7,7 +7,10 @@ trainer on the others and validates on itself, then tests; its weights go to
 ``model.{fold}.pt``. The ensemble averages the fold models' logits on the
 test split. The splits are scikit-learn's ``KFold(shuffle=True,
 random_state=seed)``, reproduced without scikit-learn (:func:`kfold_splits`).
-The top-k attention tile export of the JAX ensemble is not ported (ROADMAP A9).
+For a head with an attention query (TransMIL, RoFormerMIL) the ensemble run
+also writes each test slide's top-k tiles by the mean attention row of the
+fold models to ``ensemble_topk_tiles/`` (the reference's
+EnsembleVotingModel top-k export, ``train_loop.py:67-122``).
 """
 
 from __future__ import annotations
@@ -131,16 +134,22 @@ def run_kfold(build_trainer: Callable, dm: MILDataModule, nfold: int,
     # the ensemble: the last fold's model takes each fold's weights in turn
     model = trainer.model
     fold_weights = [read_checkpoint(p)["model"] for p in paths]
+    supports_attn = hasattr(model, "attn_query")
     model.eval()
     probs_l, labels_l, names, patients = [], [], [], []
     with torch.inference_mode():
-        for batch in dm.eval_batches("test"):
-            bags = torch.from_numpy(batch.bags).to(trainer.device)
-            logits = []
+        for batch, bags, _, coords in trainer._staged(dm.eval_batches("test")):
+            logits, rows = [], []
             for weights in fold_weights:
                 model.load_state_dict(weights)
-                logits.append(model(bags).float())
+                logits.append(trainer.forward(bags, coords).float())
+                if supports_attn:
+                    args = (bags, coords) if trainer.coord_aware else (bags,)
+                    rows.append(model(*args, return_attn=True)[1].tile_scores().mean(dim=1))
             probs_l.append(torch.softmax(torch.stack(logits).mean(0), -1).cpu().numpy())
+            if supports_attn:  # tiles scored by the fold models' mean attention row
+                trainer._export_topk_tiles(batch, torch.stack(rows).mean(0),
+                                           export_dir / "ensemble_topk_tiles")
             labels_l.append(batch.labels)
             names += batch.names
             patients += batch.patients

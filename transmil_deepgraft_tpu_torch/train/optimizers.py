@@ -18,7 +18,8 @@ accumulation, as ``optax.MultiSteps`` does.
 The rules: ``radam`` (coupled L2 weight decay, then optax's
 ``scale_by_radam``: rectification threshold 5 on the variance tractability
 ``rho_t``, eps outside the square root, ``rho_t`` and the bias corrections in
-float32), ``adam`` (coupled L2), ``adamw`` (decoupled), ``sgd`` (alias
+float32; the Adams' bias corrections are float64 for a float64 parameter),
+``adam`` (coupled L2), ``adamw`` (decoupled), ``sgd`` (alias
 ``nesterov``) and ``momentum`` (coupled L2, optax's ``trace``). A ``lookahead_`` prefix
 wraps any of them; any other name raises ``KeyError`` (the other rules are
 ROADMAP A5). :func:`create_optimizer_from_config` reads a config's
@@ -27,6 +28,8 @@ ROADMAP A5). :func:`create_optimizer_from_config` reads a config's
 :func:`create_dtfd_optimizer` is DTFD's pair of Adams, one a tier
 (:class:`TwoTierOptimizer`), as JAX's ``optax.multi_transform``: coupled L2
 on every parameter, biases included, and a step schedule.
+:func:`create_scheduled_adamw` is ``optax.adamw`` over a schedule such as
+:func:`cosine_decay_schedule` (SimCLR pretraining).
 """
 
 from __future__ import annotations
@@ -123,8 +126,11 @@ class Optimizer:
                 out.append(u * -lr * self.lr_scale)
             return out
         b1, b2 = self.betas
-        bc1 = torch.tensor(1 - _f32_pow(b1, self.count))
-        bc2 = torch.tensor(1 - _f32_pow(b2, self.count))
+        # the bias corrections in float32, as XLA computes them for float32
+        # parameters; a float64 parameter takes them in float64 (optax under x64)
+        bc = {torch.float64: (1 - b1 ** self.count, 1 - b2 ** self.count)}
+        bc32 = (torch.tensor(1 - _f32_pow(b1, self.count)),
+                torch.tensor(1 - _f32_pow(b2, self.count)))
         r = None
         if self.rule == "radam":
             ro_inf = np.float32(2.0 / (1.0 - b2) - 1.0)
@@ -136,7 +142,8 @@ class Optimizer:
         for i, g in enumerate(grads):
             self.mu[i] = (1 - b1) * g + b1 * self.mu[i]
             self.nu[i] = (1 - b2) * g ** 2 + b2 * self.nu[i]
-            mu_hat, nu_hat = self.mu[i] / bc1.to(g.device), self.nu[i] / bc2.to(g.device)
+            bc1, bc2 = bc.get(g.dtype) or (bc32[0].to(g.device), bc32[1].to(g.device))
+            mu_hat, nu_hat = self.mu[i] / bc1, self.nu[i] / bc2
             if self.rule == "radam":
                 u = mu_hat if r is None else float(r) * mu_hat / (torch.sqrt(nu_hat) + self.eps)
             else:
@@ -176,12 +183,14 @@ class Optimizer:
 
 
 class _ScheduledAdam(Optimizer):
-    """Adam with coupled L2 on every parameter and the learning rate of
-    ``schedule(count)`` (count = the updates before this one), as optax's
-    ``add_decayed_weights -> scale_by_adam -> scale_by_schedule -> scale(-1)``."""
+    """Adam (``rule`` 'adam': coupled L2, optax's ``add_decayed_weights ->
+    scale_by_adam``; 'adamw': decoupled, ``optax.adamw``) with weight decay on
+    every parameter and the learning rate of ``schedule(count)`` (count = the
+    updates before this one, so the first update takes ``schedule(0)``), as
+    optax's ``scale_by_schedule``."""
 
-    def __init__(self, schedule, weight_decay: float) -> None:
-        super().__init__("adam", 0.0, weight_decay, betas=(0.9, 0.999), eps=1e-8,
+    def __init__(self, schedule, weight_decay: float, rule: str = "adam") -> None:
+        super().__init__(rule, 0.0, weight_decay, betas=(0.9, 0.999), eps=1e-8,
                          momentum=0.9, lookahead=False, grad_accum_steps=1)
         self.schedule = schedule
 
@@ -254,6 +263,27 @@ def create_dtfd_optimizer(steps_per_epoch: int, lr: float = 1e-4, weight_decay: 
         return float(v)
 
     return TwoTierOptimizer(schedule, weight_decay)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """optax's ``cosine_decay_schedule``: ``init_value * ((1 - alpha) * 0.5 *
+    (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)``."""
+
+    def schedule(count: int) -> float:
+        c = min(count, decay_steps)
+        return init_value * ((1 - alpha) * 0.5 * (1 + np.cos(np.pi * c / decay_steps)) + alpha)
+
+    return schedule
+
+
+def create_scheduled_adamw(params: Iterable[torch.Tensor] | torch.nn.Module, schedule,
+                           weight_decay: float) -> Optimizer:
+    """``optax.adamw(schedule, weight_decay)`` over ``params``: decoupled
+    weight decay on every parameter (optax's default mask), the learning
+    rate of ``schedule(count)``."""
+    tx = _ScheduledAdam(schedule, weight_decay, rule="adamw")
+    tx.init(params)
+    return tx
 
 
 def create_optimizer(opt: str = "lookahead_radam", lr: float = 2e-4, weight_decay: float = 0.01,

@@ -36,6 +36,15 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
   K1/K2 path on the card), slide CE loss, slide and patient AUROC (positive
   slide filter), classification reports, Youden-J thresholds persisted to
   ``val_thresholds.csv`` and read back at test, the result CSVs;
+- a stage that saves results (test, ``cli.train --stage test|val``) of a
+  head with an attention query (TransMIL, RoFormerMIL) runs the
+  ``return_attn`` forward (the standard layers: B5/B6 under ``use_pallas``
+  on the card, not K1/K2) and writes each slide's top-k attended tiles to
+  ``topk_tiles/<slide>_topk_tiles.csv`` (``export_topk_tiles``);
+- figures (``epoch_figures``): val patient ROC/PR each epoch and the train
+  confusion matrix every 10th under ``figures/``, the test stage's
+  ROC/PR/confusion beside the result CSVs; a figure that fails (no
+  matplotlib) is skipped with a printed line, never failing the run;
 - early stopping on val_loss (``patience``, ``min_delta``); ReduceLROnPlateau
   with torch's semantics through the optimizer's ``lr_scale``
   (``reduce_lr_every``, ``reduce_lr_patience``, ``plateau_threshold``,
@@ -49,8 +58,7 @@ Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 :meth:`Trainer.load_train_state` also read the flax-msgpack ``.ckpt`` files
 of the JAX Trainer.
 
-Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard, figures, the top-k
-attention tile export and meshes.
+Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard and meshes.
 """
 
 from __future__ import annotations
@@ -82,31 +90,16 @@ from transmil_deepgraft_tpu_torch.train.losses import LossFn
 from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_report, youden_j_threshold
 from transmil_deepgraft_tpu_torch.train.optimizers import Optimizer
 from transmil_deepgraft_tpu_torch.utils.checkpoints import CheckpointManager, read_checkpoint
+from transmil_deepgraft_tpu_torch.utils.config import LABEL_MAP
 from transmil_deepgraft_tpu_torch.utils.jax_params import (
     classic_state_dict_from_jax, head_state_dict_from_jax, optimizer_state_from_jax)
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
-# Class names per task (ref ``code/utils/utils.py:37-53``), for the result CSVs.
-LABEL_MAP: dict[str, dict[str, str]] = {
-    "no_other": {"0": "Normal", "1": "TCMR", "2": "ABMR", "3": "Mixed", "4": "Viral"},
-    "rejections": {"0": "TCMR", "1": "ABMR", "2": "Mixed"},
-    "norm_rest": {"0": "Normal", "1": "Disease"},
-    "rej_rest": {"0": "Rejection", "1": "Other"},
-    "rest_rej": {"0": "Other", "1": "Rejection"},
-    "norm_rej_rest": {"0": "Normal", "1": "Rejection", "2": "Other"},
-    "big_three": {"0": "ccRCC", "1": "papRCC", "2": "chRCC"},
-    "tcmr_abmr": {"0": "TCMR", "1": "ABMR"},
-    "tcmr": {"0": "Other", "1": "TCMR"},
-    "tcmr_viral": {"0": "TCMR", "1": "Viral"},
-    "no_viral": {"0": "Normal", "1": "TCMR", "2": "ABMR", "3": "Mixed"},
-}
-
 
 @dataclass
 class TrainerConfig:
-    """The JAX Trainer's fields and defaults. ``autosave_async``,
-    ``eval_fn_cache``, ``epoch_figures`` and
-    ``export_topk_tiles`` have no effect in the port; ``prefetch_batches``
+    """The JAX Trainer's fields and defaults. ``autosave_async`` and
+    ``eval_fn_cache`` have no effect in the port; ``prefetch_batches``
     is the prefetch thread's depth, and 0 counts as 1 (the port always
     stages batches on that thread); ``swa``,
     ``autosave_steps``, ``use_tensorboard`` and
@@ -356,6 +349,7 @@ class Trainer:
             tp, tl = np.concatenate(train_probs), np.concatenate(train_labels)
 
             val = self.evaluate("val")
+            self._epoch_figures(epoch, val, tp, tl)
             metrics = {
                 "loss": train_loss,
                 "train_auc": auroc(tp, tl, self.n_classes),
@@ -462,12 +456,21 @@ class Trainer:
     # ------------------------------------------------------------------ eval
     def evaluate(self, mode: str, save_results: bool = False,
                  stage_name: Optional[str] = None) -> dict:
+        # the test-stage top-k attention tile export (ref custom_test_module,
+        # test_visualize.py:38-120) of the heads with an attention query
+        with_attn = (save_results and self.cfg.export_topk_tiles
+                     and hasattr(self.model, "attn_query"))
         all_probs, all_logits, all_labels, names, patients = [], [], [], [], []
         self.model.eval()
         with torch.inference_mode():
             for batch, bags, _, coords in self._staged(
                     self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size)):
-                logits = self.forward(bags, coords)
+                if with_attn:
+                    logits, attn = self.model(*((bags, coords) if self.coord_aware else (bags,)),
+                                              return_attn=True)
+                    self._export_topk_tiles(batch, attn.tile_scores().mean(dim=1))
+                else:
+                    logits = self.forward(bags, coords)
                 all_probs.append(torch.softmax(logits, dim=-1).cpu().numpy())
                 all_logits.append(logits.cpu().numpy())
                 all_labels.append(batch.labels)
@@ -527,8 +530,56 @@ class Trainer:
                 thresholds = loaded
         return thresholds
 
+    def _export_topk_tiles(self, batch, rows: torch.Tensor,
+                           out_dir: Optional[Path] = None) -> None:
+        """Each slide's top-k tiles by its (n_tokens,) attention row (mean
+        over heads), to ``<out_dir>/<slide>_topk_tiles.csv``."""
+        from transmil_deepgraft_tpu_torch.visualize.heatmap import export_topk_tiles
+
+        out_dir = out_dir or self.log_dir / "topk_tiles"
+        rows = rows.float().cpu().numpy()
+        for j, slide_name in enumerate(batch.names):
+            export_topk_tiles(rows[j][:int(batch.lengths[j])], batch.coords[j], slide_name,
+                              out_dir / f"{slide_name}_topk_tiles.csv")
+
+    def _epoch_figures(self, epoch: int, val: dict, train_probs, train_labels) -> None:
+        """Train-stage dashboard figures (ref ``model_interface.py:385-430``):
+        the val patient ROC/PR every epoch, the train confusion every 10th."""
+        if not self.cfg.epoch_figures:
+            return
+        try:
+            from transmil_deepgraft_tpu_torch.utils.plots import (
+                plot_confusion_matrix, plot_pr_curves, plot_roc_curves)
+
+            figs = self.log_dir / "figures"
+            figs.mkdir(parents=True, exist_ok=True)
+            agg = val["aggregate"]
+            plot_roc_curves(agg.scores, agg.targets, self.n_classes,
+                            figs / f"val_patient_roc_epoch{epoch:03d}", self.cfg.task)
+            plot_pr_curves(agg.scores, agg.targets, self.n_classes,
+                           figs / f"val_patient_pr_epoch{epoch:03d}", self.cfg.task)
+            if (epoch + 1) % 10 == 0:  # ref: confusion every 10 train epochs
+                plot_confusion_matrix(train_probs, train_labels, self.n_classes,
+                                      figs / f"train_confusion_epoch{epoch:03d}", self.cfg.task)
+        except Exception as e:  # figures must never fail training
+            print(f"[trainer] epoch figure export skipped: {e}")
+
     def test(self) -> dict:
         result = self.evaluate("test", save_results=True, stage_name="test")
+        # figure artifacts (ref model_interface.py:814-821)
+        try:
+            from transmil_deepgraft_tpu_torch.utils.plots import (
+                plot_confusion_matrix, plot_pr_curves, plot_roc_curves)
+
+            agg = result["aggregate"]
+            for fn, stem in ((plot_roc_curves, "test_patient_roc"),
+                             (plot_pr_curves, "test_patient_pr")):
+                fn(agg.scores, agg.targets, self.n_classes, self.log_dir / stem, self.cfg.task)
+            plot_confusion_matrix(
+                agg.scores, agg.targets, self.n_classes, self.log_dir / "test_patient_confusion",
+                self.cfg.task, threshold=result["thresholds"][1] if self.n_classes <= 2 else 0.5)
+        except Exception as e:  # figures must never fail a test run
+            print(f"[trainer] figure export skipped: {e}")
         summary = {
             "test_loss": result["loss"],
             "test_auc": result["auroc"],

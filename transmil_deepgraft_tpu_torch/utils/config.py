@@ -97,6 +97,32 @@ FEATURE_EXTRACTOR_DIMS: dict[str, int] = {
 }
 
 
+# Class-index -> class-name maps per task (ref ``code/utils/utils.py:37-53``),
+# for the result CSVs and figures.
+LABEL_MAP: dict[str, dict[str, str]] = {
+    "no_other": {"0": "Normal", "1": "TCMR", "2": "ABMR", "3": "Mixed", "4": "Viral"},
+    "rejections": {"0": "TCMR", "1": "ABMR", "2": "Mixed"},
+    "norm_rest": {"0": "Normal", "1": "Disease"},
+    "rej_rest": {"0": "Rejection", "1": "Other"},
+    "rest_rej": {"0": "Other", "1": "Rejection"},
+    "norm_rej_rest": {"0": "Normal", "1": "Rejection", "2": "Other"},
+    "big_three": {"0": "ccRCC", "1": "papRCC", "2": "chRCC"},
+    "tcmr_abmr": {"0": "TCMR", "1": "ABMR"},
+    "tcmr": {"0": "Other", "1": "TCMR"},
+    "tcmr_viral": {"0": "TCMR", "1": "Viral"},
+    # tasks only named in the reference's label_map.json (test_visualize.py:277)
+    "no_viral": {"0": "Normal", "1": "TCMR", "2": "ABMR", "3": "Mixed"},
+    "all": {"0": "Normal", "1": "TCMR", "2": "ABMR", "3": "Mixed", "4": "Viral", "5": "Other"},
+    "camelyon16": {"0": "Normal", "1": "Tumor"},
+}
+
+# the figures' per-class / per-run colours
+COLOR_MAP = [
+    "#377eb8", "#ff7f00", "#4daf4a", "#f781bf", "#a65628", "#984ea3",
+    "#999999", "#e41a1c", "#dede00",
+]
+
+
 def derive_task_from_config_path(config_path: str | Path) -> str:
     """Task from the file name: ``TransMIL_retccl_norm_rest.yaml`` ->
     ``norm_rest`` (stem parts from the third on, cut at the first ``-``)."""
