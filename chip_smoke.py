@@ -113,7 +113,14 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    ``ImageVisualizer`` over ResNet50 (gradcam, eigencam) held to float64,
    ``cli.pretrain`` (ResNet18, 64 tiles, batch 32) and ConvMixer,
    ``cli.sustainability`` in both modes at the card's power limit,
-   ``cli.export_metrics``, and whether matplotlib is installed.
+   ``cli.export_metrics``, and whether matplotlib is installed;
+16. the rest of training (``phase_train_rest``): the nine other optimizer
+   rules on TransMIL-2048 with ``use_pallas`` held to the all-plain route
+   (the first gradients, then the weights; exact B5/B6 counts, each rule's
+   step time), AdaHessian on AttMIL-2048
+   and TransformerMIL-2048 (its diagonal held to the CPU's, its step against
+   Adam's; TransMIL raises ROADMAP C18's error), and ``Trainer.fit`` with
+   SWA, a mid-epoch autosave and its resume, and TensorBoard.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -3381,6 +3388,316 @@ def phase_tools(rng, results: dict, dev) -> None:
     log(f"[env] tools phase {time.perf_counter() - t_phase:.1f} s")
 
 
+REST_RULES = ("nadam", "lookahead_adamp", "sgdp", "adadelta", "adafactor", "rmsprop",
+              "rmsproptf", "lookahead_novograd", "lamb")  # the nine rules, two with lookahead
+REST_STEPS = 4  # optimizer steps a rule, held to the all-plain route
+REST_GRAD_TOL = 1e-4  # the two routes' first gradients, relative to each tensor's largest entry
+HESSIAN_BAGS = {"AttMIL": 40960, "TransformerMIL": 1000}
+HESSIAN_STEPS = 3
+HESSIAN_TOL = 1e-3  # the diagonal vs the CPU's, relative to its largest entry
+SWA_SPLITS = {"n_train": 16, "n_val": 8, "n_test": 8}
+SWA_AUTOSAVE = 4  # micro-steps between autosaves
+REST_BUDGET_S = 90.0
+
+
+def phase_train_rest(rng, results: dict, dev) -> None:
+    """The rest of training on the card (phase 16):
+
+    (a) TransMIL-2048 with ``use_pallas`` at the training cell's settings
+    (``configs/synthetic_transmil_norm_rest.yaml``: 1,000-tile bags, batch 1,
+    grad_acc 2): the first micro-step's gradients of the kernel route held
+    to the all-plain route's within 1e-4 of each tensor's largest entry;
+    then each of the nine other rules (lookahead on adamp and novograd)
+    from one init: 4 optimizer steps held to the all-plain route within
+    1e-4 or, where larger, the rule's own spread under gradient noise of
+    the size the two routes' gradients differ by, the losses within 1e-4,
+    B5/B6 2 launches each a micro-step, each rule's median step time (the
+    last 3 steps);
+    (b) AdaHessian on AttMIL-2048 (a 40,960-tile bag) and TransformerMIL-2048
+    (1,000 tiles): the first step's Hutchinson diagonal held to the same
+    step on the CPU with the same probes (within 1e-3 of its largest entry),
+    3 steps timed against 3 Adam steps on the same bag; TransMIL raises
+    ROADMAP C18's TypeError on the card too;
+    (c) ``Trainer.fit`` of TransMIL-2048 with ``use_pallas``, 2 epochs of 16
+    bags, SWA from epoch 1 (``swa_start_frac`` 0.5), an autosave every 4
+    micro-steps, TensorBoard on where tensorboardX is installed: the final
+    weights are the mean of the averaged epochs' end weights, ``last.ckpt``
+    holds them alone; a run that dies in epoch 1 resumes from its mid-epoch
+    autosave (the epoch restarts on the autosaved weights, as JAX's); the
+    autosave's cost a micro-step, with against without."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.train.adahessian import rademacher, \
+        value_grad_and_diag_hessian
+    from transmil_deepgraft_tpu_torch.train.losses import create_loss
+    from transmil_deepgraft_tpu_torch.train.optimizers import create_optimizer
+    from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from transmil_deepgraft_tpu_torch.utils.checkpoints import read_checkpoint
+
+    t_phase = time.perf_counter()
+    loss_fn = create_loss()
+
+    def datamodule(splits):
+        return MILDataModule(n_classes=2, max_bag_size=TRAIN_BAG, batch_size=1, seed=2021,
+                             synthetic={**splits, "bag_size": TRAIN_BAG, "feature_size": 2048,
+                                        "signal": 0.8})
+
+    torch.manual_seed(1)
+    init = create_model("TransMIL", 2, 2048, device=dev).state_dict()
+
+    def transmil(use_pallas: bool):
+        model = create_model("TransMIL", 2, 2048, device=dev, use_pallas=use_pallas)
+        model.load_state_dict(init)
+        return model
+
+    # (a) the nine rules against the all-plain route. First the kernels'
+    # backward alone: the first micro-step's gradients of the two routes, from
+    # one init and one bag, each tensor within REST_GRAD_TOL of its largest
+    # entry. Then the weights after 4 steps of each rule. A rule that divides
+    # each element's step by that element's own gradient scale (nadam, adamp,
+    # rmsprop, ...) turns a sign flip of a gradient at the float32 noise floor
+    # into a step of ~lr, so the bar is 1e-4 or, where larger, the rule's own
+    # spread: the all-plain route against itself with each micro-step's
+    # gradient moved by Gaussian noise of the RMS by which the two routes'
+    # first gradients differ, tensor by tensor, relative to its largest entry
+    dm = datamodule(TRAIN_SPLITS)
+    batches = list(dm.train_batches(0))[:REST_STEPS * GRAD_ACC]
+
+    def first_grads(use_pallas: bool, tmp: str) -> list[torch.Tensor]:
+        tr = Trainer(transmil(use_pallas), create_optimizer("adam", grad_accum_steps=GRAD_ACC),
+                     dm, n_classes=2, loss_fn=loss_fn,
+                     config=TrainerConfig(log_dir=f"{tmp}/grads{use_pallas}",
+                                          train_deterministic=True, epoch_figures=False))
+        tr.tx.init(tr.model)
+        tr.train_step(*tr._batch_tensors(batches[0]))  # accumulates: the weights stay
+        return [p.grad.clone() for p in tr.model.parameters()]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gk, gp = first_grads(True, tmp), first_grads(False, tmp)
+    names = [n for n, _ in transmil(False).named_parameters()]
+    scales = [g.abs().max().clamp_min(1e-30) for g in gp]
+    grad_err, grad_where = max((((a - b).abs().max() / s).item(), n)
+                               for a, b, s, n in zip(gk, gp, scales, names))
+    noise_rel = [((a - b).pow(2).mean().sqrt() / s).item() for a, b, s in zip(gk, gp, scales)]
+    log(f"[train_rest] the first micro-step's gradients, kernel route vs all-plain route: max "
+        f"err {grad_err:.3e} of the tensor's largest entry ({grad_where}; tol {REST_GRAD_TOL}); "
+        f"RMS of the difference {min(noise_rel):.3e} to {max(noise_rel):.3e} of the tensor's "
+        f"largest entry, the noise of each rule's spread")
+    if not grad_err <= REST_GRAD_TOL:
+        raise AssertionError("the kernel route's gradients disagree with the all-plain route's")
+
+    def noisy(tx, seed: int):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step = tx.step
+
+        def perturbed_step(**kw):
+            with torch.no_grad():
+                for p, rel in zip(tx.params, noise_rel):
+                    if p.grad is not None:
+                        p.grad += rel * p.grad.abs().max() * torch.randn(
+                            p.grad.shape, generator=gen, device=dev)
+            return step(**kw)
+
+        tx.step = perturbed_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for opt in REST_RULES:
+            runs = []
+            for use_pallas, perturb in ((True, False), (False, False), (False, True)):
+                tr = Trainer(transmil(use_pallas),
+                             create_optimizer(opt, lr=2e-4, weight_decay=0.01,
+                                              grad_accum_steps=GRAD_ACC),
+                             dm, n_classes=2, loss_fn=loss_fn,
+                             config=TrainerConfig(log_dir=f"{tmp}/{opt}{use_pallas}{perturb}",
+                                                  train_deterministic=True,
+                                                  epoch_figures=False))
+                tr.tx.init(tr.model)
+                if perturb:
+                    noisy(tr.tx, 7)
+                nk.reset_launch_counts()
+                step_ms, losses = [], []
+                for i in range(0, len(batches), GRAD_ACC):
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    for batch in batches[i:i + GRAD_ACC]:
+                        losses.append(tr.train_step(*tr._batch_tensors(batch))[0])
+                    sync(dev)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                runs.append((tr, step_ms, losses, dict(nk.LAUNCHES)))
+            (kern, ms, lk, launches), (plain, plain_ms, lp, _), (noise, *_) = runs
+
+            def worst(a, b):
+                return max(((x - y).abs().max().item(), n) for (n, x), y in
+                           zip(a.model.named_parameters(), b.model.parameters()))
+
+            (diff, where), (spread, _) = worst(kern, plain), worst(noise, plain)
+            bar = max(1e-4, spread)
+            want = {"nystrom_landmark_attn": 2 * len(batches), "nystrom_query_lm": 2 * len(batches)}
+            log(f"[train_rest] {opt}: step {np.median(ms[1:]):.3f} ms (median of the last "
+                f"{len(ms) - 1}; all-plain route {np.median(plain_ms[1:]):.3f} ms), "
+                f"max|dloss| {max(abs(a - b) for a, b in zip(lk, lp)):.3e}, max|dparam| "
+                f"{diff:.3e} ({where}); the rule's own spread {spread:.3e}, bar {bar:.3e}; "
+                f"launches {launches}")
+            if launches != want:
+                raise AssertionError(f"{opt}: expected launches {want}, got {launches}")
+            worst_loss = max(abs(a - b) for a, b in zip(lk, lp))
+            if not (diff <= bar and worst_loss <= 1e-4 and np.isfinite(lk).all()):
+                raise AssertionError(f"{opt}: the kernel route disagrees with the all-plain route")
+
+    # (b) AdaHessian: the diagonal against the CPU's, the step against Adam's
+    for name, n in HESSIAN_BAGS.items():
+        torch.manual_seed(2)
+        model = create_model(name, 2, 2048, device=dev)
+        cpu = create_model(name, 2, 2048, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        x = torch.from_numpy(rng.standard_normal((1, n, 2048), dtype=np.float32))
+        y = torch.tensor([[0.0, 1.0]])
+        zs = rademacher(list(cpu.parameters()), torch.Generator().manual_seed(3))
+        diags = []
+        for m, d in ((model, dev), (cpu, torch.device("cpu"))):
+            m.eval()  # dropout off: the two devices draw other masks
+            xd, yd = x.to(d), y.to(d)
+            _, _, diag = value_grad_and_diag_hessian(
+                lambda: loss_fn(m(xd), yd), list(m.parameters()), zs=[z.to(d) for z in zs])
+            diags.append([t.cpu() for t in diag])
+        scale = max(t.abs().max().item() for t in diags[1])
+        err = max((a - b).abs().max().item() for a, b in zip(*diags)) / max(scale, 1e-30)
+        log(f"[train_rest] AdaHessian {name}-2048 at {n} tiles: the diagonal vs the CPU's with "
+            f"the same probes, max err {err:.3e} of its largest entry {scale:.3e} "
+            f"(tol {HESSIAN_TOL})")
+        if not err <= HESSIAN_TOL:
+            raise AssertionError(f"{name}: the card's Hessian diagonal disagrees with the CPU's")
+        xd, labels = x.to(dev), torch.ones(1, dtype=torch.long, device=dev)
+        times = {}
+        for opt in ("adahessian", "adam"):
+            m = create_model(name, 2, 2048, device=dev)
+            m.load_state_dict(model.state_dict())
+            with tempfile.TemporaryDirectory() as tmp:
+                tr = Trainer(m, create_optimizer(opt, lr=2e-4, weight_decay=0.01), dm,
+                             n_classes=2, loss_fn=loss_fn, model_name=name,
+                             config=TrainerConfig(log_dir=tmp, epoch_figures=False))
+                tr.tx.init(tr.model)
+                ms = []
+                for _ in range(HESSIAN_STEPS + 1):
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    loss, _ = tr.train_step(xd, labels)
+                    sync(dev)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.isfinite(loss):
+                    raise AssertionError(f"{name} {opt}: non-finite loss")
+            times[opt] = float(np.median(ms[1:]))
+        log(f"[train_rest] {name}-2048 at {n} tiles: AdaHessian step {times['adahessian']:.3f} "
+            f"ms, Adam step {times['adam']:.3f} ms (median of {HESSIAN_STEPS} after a warm-up "
+            f"one), ratio {times['adahessian'] / times['adam']:.2f}")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            Trainer(transmil(True), create_optimizer("adahessian"), dm, n_classes=2,
+                    loss_fn=loss_fn, config=TrainerConfig(log_dir=tmp, epoch_figures=False))
+        raise AssertionError("TransMIL's AdaHessian did not raise (ROADMAP C18)")
+    except TypeError as e:
+        if "C18" not in str(e):
+            raise
+        log(f"[train_rest] TransMIL-2048 AdaHessian raises on the card: {str(e)[:90]}...")
+
+    # (c) fit with SWA and autosave; a run that dies mid-epoch resumes
+    tb = importlib.util.find_spec("tensorboardX") is not None
+    log(f"[train_rest] tensorboardX installed: {tb}")
+
+    class Died(Exception):
+        pass
+
+    def fit_trainer(log_dir, autosave: int):
+        tx = create_optimizer("lookahead_radam", lr=2e-4, weight_decay=0.01,
+                              grad_accum_steps=GRAD_ACC)
+        config = TrainerConfig(epochs=TRAIN_EPOCHS, log_dir=str(log_dir), swa=True,
+                               swa_start_frac=0.5, autosave_steps=autosave,
+                               use_tensorboard=tb, epoch_figures=False, export_topk_tiles=False)
+        return Trainer(transmil(True), tx, datamodule(SWA_SPLITS), n_classes=2,
+                       loss_fn=loss_fn, config=config)
+
+    def timed(tr, die_at=None):
+        """Host time between micro-steps (a step and what follows it: the
+        autosave's snapshot), and the end weights of each averaged epoch."""
+        marks, ends = [], []
+        step, swa_update = tr.train_step, tr._swa_update
+
+        def train_step(*args):
+            if die_at is not None and len(marks) == die_at:
+                raise Died
+            sync(dev)
+            marks.append(time.perf_counter())
+            return step(*args)
+
+        def on_swa():
+            ends.append([p.detach().double().clone() for p in tr.model.parameters()])
+            swa_update()
+
+        tr.train_step, tr._swa_update = train_step, on_swa
+        return marks, ends
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        per_step = {}
+        for autosave in (0, SWA_AUTOSAVE):
+            tr = fit_trainer(tmp / f"fit{autosave}", autosave)
+            marks, ends = timed(tr)
+            tr.fit()
+            gaps = np.diff(marks[:SWA_SPLITS["n_train"]]) * 1e3  # epoch 0's micro-steps
+            per_step[autosave] = (float(np.mean(gaps)), float(np.median(gaps)))
+        mean = [torch.stack(ws).mean(0) for ws in zip(*ends)]
+        worst = max((p.detach().double() - m).abs().max().item()
+                    for p, m in zip(tr.model.parameters(), mean))
+        last = read_checkpoint(tmp / f"fit{SWA_AUTOSAVE}" / "checkpoints" / "last.ckpt")
+        log(f"[train_rest] fit with SWA over {len(ends)} epoch end(s): max|final - mean| "
+            f"{worst:.3e}; last.ckpt keys {sorted(last)}")
+        if worst > 1e-6 or set(last) != {"model"}:
+            raise AssertionError("SWA's final weights or last.ckpt are wrong")
+        if tb and not list((tmp / f"fit{SWA_AUTOSAVE}" / "tb").glob("events.out.tfevents.*")):
+            raise AssertionError("no TensorBoard events were written")
+        (m0, d0), (m1, d1) = per_step[0], per_step[SWA_AUTOSAVE]
+        log(f"[train_rest] a micro-step of epoch 0, mean / median: {m0:.3f} / {d0:.3f} ms "
+            f"without autosave, {m1:.3f} / {d1:.3f} ms with one every {SWA_AUTOSAVE}: "
+            f"{m1 - m0:+.3f} ms a micro-step")
+
+        # dies at epoch 1's 11th micro-step: the autosave after its 8th holds
+        # 8 + 4 optimizer steps and epoch 1 as the one to rerun
+        die_at = SWA_SPLITS["n_train"] + 10
+        tr = fit_trainer(tmp / "died", SWA_AUTOSAVE)
+        timed(tr, die_at)
+        try:
+            tr.fit()
+            raise AssertionError("the run did not die")
+        except Died:
+            tr._autosave_join()
+        saved = read_checkpoint(tmp / "died" / "checkpoints" / "last.ckpt")
+        count = (SWA_SPLITS["n_train"] + 8) // GRAD_ACC
+        resumed = fit_trainer(tmp / "died", SWA_AUTOSAVE)
+        if not resumed.load_train_state(tmp / "died" / "checkpoints" / "last.ckpt"):
+            raise AssertionError("the autosave holds no train state")
+        same = all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in
+                   zip(saved["model"].values(), resumed.model.state_dict().values()))
+        rows_before = len(metric_rows(tmp / "died"))
+        resumed.fit()
+        rows = metric_rows(tmp / "died")
+        log(f"[train_rest] died at micro-step {die_at}: autosave of epoch "
+            f"{saved['fit']['epoch']} with {saved['optimizer']['count']} optimizer steps; the "
+            f"resume reran epoch {rows[-1]['step']} to {resumed.tx.count} steps, val_loss "
+            f"{rows[-1]['val_loss']:.4f}")
+        if not (saved["fit"]["epoch"] == 1 and saved["optimizer"]["count"] == count and same
+                and resumed.tx.count == count + SWA_SPLITS["n_train"] // GRAD_ACC
+                and len(rows) == rows_before + 1 and np.isfinite(rows[-1]["val_loss"])):
+            raise AssertionError("the mid-epoch autosave did not resume as JAX's does")
+    spent = time.perf_counter() - t_phase
+    log(f"[train_rest] phase {spent:.1f} s (budget {REST_BUDGET_S:.0f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -3429,6 +3746,7 @@ def main() -> int:
     phase_extract(rng, results, dev, variables)
     phase_backbones(rng, results, dev)
     phase_tools(rng, results, dev)
+    phase_train_rest(rng, results, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

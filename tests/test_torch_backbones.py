@@ -62,7 +62,7 @@ FEAT_TOL = 1e-4
 STATS_TOL = 1e-5
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -32,6 +32,16 @@ IN_F, OUT_F, N_CLS = 64, 64, 2
 MAX_BAR = 5e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def case():
     r = np.random.default_rng(0)

@@ -82,7 +82,7 @@ _ORIG_PORT_TRAIN_BUILD = tcli_train.build
 _ORIG_JAX_EXTRACT = jfe.extract_cohort
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -336,3 +336,39 @@ def test_nystrom_landmark_launcher_refuses_a_bad_plan(cuda_device):
     assert launch(per, splits, part.numel(), tiles) == 0
     torch.cuda.synchronize()
     assert int(counters.abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_hutchinson_diagonal_takes_a_twice_differentiable_attention_route(cuda_device):
+    """AdaHessian's Hessian-vector product through TransformerMIL on the card:
+    outside the Hessian route its dense attention is SDPA's memory-efficient
+    backend, which has no double backward; ``value_grad_and_diag_hessian``
+    runs the plain formula, and the diagonal equals the CPU's with the same
+    probes within 1e-3 of its largest entry (float32 sums in another
+    order)."""
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.train.adahessian import (
+        rademacher, value_grad_and_diag_hessian)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    cpu = create_model("TransformerMIL", 2, 64, 32, device="cpu").eval()
+    card = create_model("TransformerMIL", 2, 64, 32, device=cuda_device).eval()
+    card.load_state_dict({k: v.to(cuda_device) for k, v in cpu.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 300, 64), np.float32))
+    zs = rademacher(list(cpu.parameters()), torch.Generator().manual_seed(1))
+    diags = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        xd = x.to(dev)
+        _, _, diag = value_grad_and_diag_hessian(lambda: model(xd)[0, 1] - model(xd)[0, 0],
+                                                 list(model.parameters()),
+                                                 zs=[z.to(dev) for z in zs])
+        diags.append([d.cpu() for d in diag])
+    scale = max(d.abs().max().item() for d in diags[0])
+    assert scale > 0
+    for want, got in zip(*diags):
+        assert (want - got).abs().max().item() <= 1e-3 * scale
+    with pytest.raises(RuntimeError):  # SDPA's route has no double backward
+        loss = card(x.to(cuda_device))[0, 1]
+        (g,) = torch.autograd.grad(loss, [next(card.parameters())], create_graph=True)
+        torch.autograd.grad(g.sum(), [next(card.parameters())])

@@ -61,7 +61,7 @@ CASES = {
 }
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

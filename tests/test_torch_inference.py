@@ -50,6 +50,16 @@ def case():
     return variables, params, tiles, tiles_u8, jax.device_get(jpipe._q), want
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain int8 path is float64 matmuls: one intra-op thread keeps the
+    CPU for the test workers running beside this one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_pipeline(case, **kwargs):
     variables, params, tiles, _, jq, _ = case
     pipe = SlideInferencePipeline(variables, port_head(params), calib_tiles=tiles[:4],
@@ -57,10 +67,24 @@ def port_pipeline(case, **kwargs):
     return pipe, jq
 
 
-@pytest.mark.parametrize("kind", ["float", "uint8"])
-def test_pipeline_matches_jax_with_carried_constants(case, kind):
+@pytest.fixture(scope="module")
+def port(case):
+    """One port pipeline with its own calibration, and what that calibration
+    gives (the float tiles' features, whole and by prefix, and
+    probabilities); then the same pipeline with JAX's int8 constants carried
+    across (``qresnet_from_jax``). One calibration serves every test but the
+    fused one."""
     pipe, jq = port_pipeline(case)
+    tiles = case[2]
+    own = {"feats": pipe.embed(tiles), "probs": pipe.predict_slide(tiles),
+           "prefix": {n: pipe.embed(tiles[:n]) for n in (1, 5, 7)}}
     pipe._q = qresnet_from_jax(jq)
+    return pipe, jq, own
+
+
+@pytest.mark.parametrize("kind", ["float", "uint8"])
+def test_pipeline_matches_jax_with_carried_constants(case, port, kind):
+    pipe, jq, _ = port
     tiles = case[2] if kind == "float" else case[3]
     want_feats, want_probs, want_attn_probs, want_scores = case[5][kind]
     half_share = float(jq.final_scale) / (2 * 2 * 2)
@@ -75,29 +99,29 @@ def test_pipeline_matches_jax_with_carried_constants(case, kind):
     np.testing.assert_allclose(scores, want_scores, atol=SCORE_TOL, rtol=0)
 
 
-def test_pipeline_own_calibration_close_to_jax(case):
+def test_pipeline_own_calibration_close_to_jax(case, port):
     """The port's own calibration (float64, see tests/test_torch_resnet_int8.py)
     moves a few int8 codes: features are held by cosine, and probabilities to
     1e-2 rather than 1e-3."""
-    pipe, _ = port_pipeline(case)
+    own = port[2]
     want_feats, want_probs = case[5]["float"][:2]
-    feats = pipe.embed(case[2])
+    feats = own["feats"]
     cos = (feats * want_feats).sum(-1) / (
         np.linalg.norm(feats, axis=-1) * np.linalg.norm(want_feats, axis=-1))
     assert cos.min() > 0.9999, cos
-    np.testing.assert_allclose(pipe.predict_slide(case[2]), want_probs, atol=1e-2, rtol=0)
+    np.testing.assert_allclose(own["probs"], want_probs, atol=1e-2, rtol=0)
 
 
-def test_fused_backbone_and_ragged_chunks(case):
-    """The fused segment control gives the same codes; the zero pad of the
-    last chunk changes no real tile's features (tiles are independent)."""
-    pipe, jq = port_pipeline(case)
+def test_fused_backbone_and_ragged_chunks(case, port):
+    """The fused segment control gives the same codes as the plain one under
+    the same (own) calibration; the zero pad of the last chunk changes no
+    real tile's features (tiles are independent)."""
+    own = port[2]
     fused, _ = port_pipeline(case, fused_backbone=True, fused_t_cfg=(1, 0, 2, 0, 4, 1, 0))
-    tiles = case[2]
-    full = pipe.embed(tiles)
-    np.testing.assert_array_equal(fused.embed(tiles), full)
+    full = own["feats"]
+    np.testing.assert_array_equal(fused.embed(case[2]), full)
     for n in (1, 5, 7):
-        np.testing.assert_array_equal(pipe.embed(tiles[:n]), full[:n])
+        np.testing.assert_array_equal(own["prefix"][n], full[:n])
     with pytest.raises(ValueError, match="does not divide"):
         port_pipeline(case, fused_backbone=True, fused_t_cfg=(1, 1, 3, 1, 1, 1, 1))
 

@@ -32,7 +32,7 @@ def _interpret_mode():
         yield
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Small ops: one intra-op thread keeps them cheap on a loaded CPU."""
     threads = torch.get_num_threads()

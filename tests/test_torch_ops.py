@@ -18,6 +18,16 @@ from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv as torch_pi
 TOL = 5e-4  # float32, different summation orders on both sides
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
 

@@ -54,7 +54,7 @@ from transmil_deepgraft_tpu_torch.utils.jax_params import (
 FIT_TOL = 1e-6
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

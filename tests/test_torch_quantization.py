@@ -10,6 +10,16 @@ from transmil_deepgraft_tpu.ops import quantization as jq
 from transmil_deepgraft_tpu_torch.ops import quantization as pq
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("shape", [(1, 1, 64, 256), (3, 3, 32, 48), (4, 4, 12, 64)])
 def test_build_time_primitives_bit_exact(shape):
     rng = np.random.default_rng(sum(shape))

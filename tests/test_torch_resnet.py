@@ -16,6 +16,16 @@ from transmil_deepgraft_tpu_torch.utils.jax_params import resnet_state_dict_from
 REL_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def perturbed_resnet_variables(seed: int, size: int = 64) -> dict:
     """Flax ResNet50 variables (numpy) with non-trivial BatchNorm statistics,
     so that folding and eval-mode BN matter."""

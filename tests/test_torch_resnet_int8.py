@@ -27,6 +27,16 @@ from transmil_deepgraft_tpu_torch.utils.jax_params import (
 SIZE = 64  # tiles of 64x64: the last stage is 2x2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def half_code_share(q, size=SIZE, truncate_after=4):
     side = size // (4 * 2 ** (truncate_after - 1))
     return float(q.final_scale) / (2 * side * side)

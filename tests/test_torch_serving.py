@@ -16,6 +16,16 @@ from transmil_deepgraft_tpu_torch.serving import (
 IN_FEATURES, N_CLASSES, BUCKETS = 384, 3, (64, 128, 256)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def params():
     """Flax-layout params of a seeded port model (non-zero LN biases)."""

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from transmil_deepgraft_tpu.cli import export_metrics as jcli_export
 from transmil_deepgraft_tpu.train.aggregation import aggregate_patients
@@ -38,6 +39,16 @@ from transmil_deepgraft_tpu_torch.cli import sustainability as tcli_sus
 from transmil_deepgraft_tpu_torch.utils import export_metrics as texport
 from transmil_deepgraft_tpu_torch.utils import profiling as tprof
 from transmil_deepgraft_tpu_torch.utils import sustainability as tsus
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 def test_energy_tracker_is_jax_formula():
     for watts, chips in ((700.0, 1), (350.0, 4)):

@@ -41,7 +41,7 @@ LR, WD, ACC = 2e-4, 0.01, 2
 AUC_TOL = 0.005
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The tiny model runs thousands of small ops a step: with one intra-op
     thread each costs microseconds whatever else loads the CPU (with a thread
@@ -190,11 +190,17 @@ def test_optimizer_follows_optax_step_for_step():
 
 
 def test_create_optimizer_names():
-    for name in ("radam", "lookahead_adam", "adamw", "sgd", "momentum", "lookahead_fusedradam"):
+    """Every name JAX's ``create_optimizer`` takes (fused and lookahead
+    forms too) builds; an unknown one raises JAX's KeyError."""
+    for name in ("radam", "lookahead_adam", "adamw", "sgd", "nesterov", "momentum",
+                 "lookahead_fusedradam", "nadam", "adamp", "sgdp", "adadelta", "adafactor",
+                 "adahessian", "lookahead_adahessian", "rmsprop", "rmsproptf", "novograd",
+                 "lookahead_novograd", "nvnovograd", "lamb", "fusedlamb", "fusednovograd"):
+        jax_create_optimizer(name)
         create_optimizer(name)
-    for name in ("nadam", "lamb", "adafactor", "lookahead_novograd"):
-        with pytest.raises(KeyError):
-            create_optimizer(name)
+    for create in (jax_create_optimizer, create_optimizer):
+        with pytest.raises(KeyError, match="unknown optimizer"):
+            create("lookahead_nosuchrule")
 
 
 # -------------------------------------------------------------------- fit
@@ -251,14 +257,17 @@ def test_fit_matches_the_jax_trainer(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """Only the orbax backend is refused, naming why; SWA, autosave and
+    TensorBoard are ported (tests/test_torch_optimizers.py)."""
     _, tdm = _modules()
     model = create_model("TransMIL", N_CLS, IN_F, OUT_F, device="cpu")
-    for over in ({"swa": True}, {"autosave_steps": 5}, {"use_tensorboard": True},
-                 {"ckpt_backend": "orbax"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            Trainer(model, create_optimizer(), tdm, n_classes=N_CLS,
-                    loss_fn=tlosses.create_loss(),
-                    config=TrainerConfig(log_dir=str(tmp_path), **over))
+    with pytest.raises(NotImplementedError, match="orbax and tensorstore are installed on "
+                                                  "neither"):
+        Trainer(model, create_optimizer(), tdm, n_classes=N_CLS, loss_fn=tlosses.create_loss(),
+                config=TrainerConfig(log_dir=str(tmp_path), ckpt_backend="orbax"))
+    for over in ({"swa": True}, {"autosave_steps": 5}, {"use_tensorboard": True}):
+        Trainer(model, create_optimizer(), tdm, n_classes=N_CLS, loss_fn=tlosses.create_loss(),
+                config=TrainerConfig(log_dir=str(tmp_path), **over))
 
 
 def test_trainer_config_has_the_jax_fields_and_defaults():

@@ -19,6 +19,16 @@ LOGIT_TOL = 1e-3  # the PARITY.md bar
 FIXTURE = Path(__file__).parent / "fixtures" / "parity_transmil_2048.npz"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test workers on the
+    machine's cores, and the port's plain paths are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_params(in_features, out_features, n_classes, seed):
     """Seeded flax-layout params (every leaf random, so LayerNorm and Dense
     biases are non-zero), made through the JAX package's torch converter."""

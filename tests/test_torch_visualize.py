@@ -72,7 +72,7 @@ from transmil_deepgraft_tpu_torch.visualize import cam as tcam
 from transmil_deepgraft_tpu_torch.visualize import heatmap as theat
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

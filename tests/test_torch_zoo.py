@@ -49,7 +49,7 @@ FIXTURE_TOL = 1e-3
 FIXTURES = Path(__file__).parent / "fixtures"
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

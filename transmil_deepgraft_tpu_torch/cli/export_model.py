@@ -9,11 +9,11 @@ probabilities): the int8 ResNet50 calibrated on ``--calib_tiles`` (on the
 card, or ``--device cpu``), else the float ResNet50 served in bf16. The
 port's bundles hold weights, not compiled programs: ``--platforms`` and
 ``--symbolic`` are accepted at their defaults only. ``--model`` takes every
-ported bag head (TransMIL, TransformerMIL, AttMIL, Chowder, RoFormerMIL,
-AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL): its widths and
-depths come from the weights, its other knobs are the head's defaults, as in
-the JAX CLI. CTMIL and ``resnet50`` take grid volumes, which a bundle does
-not carry, and are refused.
+ported head (TransMIL, TransformerMIL, AttMIL, Chowder, RoFormerMIL,
+AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL, and the spatial
+CTMIL and ``resnet50``, whose bundles serve a bag as a 1 x n grid, as JAX's
+do, with their BatchNorm statistics): its widths and depths come from the
+weights, its other knobs are the head's defaults, as in the JAX CLI.
 
 Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
 port's trainer checkpoints) or flax msgpack trees (the JAX trainer's
@@ -34,8 +34,8 @@ def make_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(description="export a serving bundle (.tdx)")
     p.add_argument("--model", required=True,
-                   help="bag head: TransMIL/TransformerMIL/AttMIL/Chowder/RoFormerMIL/"
-                        "AttTrans/CLAM_SB/CLAM_MB/DTFD/MDMIL/DSMIL (models.create_model)")
+                   help="head: TransMIL/TransformerMIL/AttMIL/Chowder/RoFormerMIL/AttTrans/"
+                        "CLAM_SB/CLAM_MB/DTFD/MDMIL/DSMIL/CTMIL/resnet50 (models.create_model)")
     p.add_argument("--ckpt", required=True,
                    help="trainer .ckpt, flax msgpack tree, or torch .pth")
     p.add_argument("--out", required=True, help="output bundle path (.tdx)")
@@ -70,7 +70,7 @@ def make_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     import numpy as np
 
-    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, SPATIAL_HEADS
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY
     from transmil_deepgraft_tpu_torch.serving import export_serving_bundle, export_slide_bundle
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
@@ -84,10 +84,6 @@ def main(argv: list[str] | None = None) -> dict:
         # not bag heads (ROADMAP C13), and neither package exports them
         raise SystemExit(f"--model {args.model}: unknown model, not a bag head; the port "
                          f"exports {sorted(MODEL_REGISTRY)}")
-    if args.model in SPATIAL_HEADS:
-        raise SystemExit(f"--model {args.model} takes (H, W, D) grid volumes, which a bundle "
-                         "does not carry; it trains with cli.train (ROADMAP A7, done but for "
-                         "serving the spatial heads)")
     params = load_head_params(args.ckpt, args.in_features, args.model)
     buckets = [int(b) for b in args.buckets.split(",")]
     if args.backbone_ckpt:

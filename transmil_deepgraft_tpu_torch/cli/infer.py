@@ -56,7 +56,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from transmil_deepgraft_tpu_torch.data.tiles import imagenet_normalize, parse_coords
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
-    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY, SPATIAL_HEADS
+    from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY
     from transmil_deepgraft_tpu_torch.serving import head_from_params
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
         load_backbone_variables, load_head_params)
@@ -67,9 +67,6 @@ def main(argv: list[str] | None = None) -> list[dict]:
         # not bag heads (ROADMAP C13), and neither package serves them
         raise SystemExit(f"--model {args.model}: unknown model, not a bag head; the port "
                          f"serves {sorted(MODEL_REGISTRY)}")
-    if args.model in SPATIAL_HEADS:
-        raise SystemExit(f"--model {args.model} takes (H, W, D) grid volumes, not a slide's "
-                         "bag of tiles (ROADMAP A7, done but for serving the spatial heads)")
     if not MODEL_REGISTRY[args.model].gives_attention:
         raise SystemExit(f"--model {args.model} gives no per-tile attention for the top-k "
                          "tiles (JAX's cli.infer cannot run it either); serve it from a slide "

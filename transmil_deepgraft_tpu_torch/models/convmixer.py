@@ -33,7 +33,7 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class _DWConv(nn.Conv2d):
+class DepthwiseConv2d(nn.Conv2d):
     """A depthwise ``Conv2d`` (weight (C, 1, k, k), bias) whose forward takes
     and gives NCHW views of NHWC memory through ``depthwise_conv2d``."""
 
@@ -53,7 +53,7 @@ class ConvMixer(nn.Module):
         self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size)
         self.patch_bn = BatchNorm2d(dim)
         for i in range(depth):
-            self.add_module(f"dw_{i}", _DWConv(dim, kernel_size))
+            self.add_module(f"dw_{i}", DepthwiseConv2d(dim, kernel_size))
             self.add_module(f"dw_bn_{i}", BatchNorm2d(dim))
             self.add_module(f"pw_{i}", nn.Conv2d(dim, dim, 1))
             self.add_module(f"pw_bn_{i}", BatchNorm2d(dim))

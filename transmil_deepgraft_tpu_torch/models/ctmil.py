@@ -33,7 +33,10 @@ def _stage(cin: int, cout: int) -> nn.Sequential:
 
 class CTMIL(TransMILBody):
     flax_classifier = "fc"  # the flax name of the (width, n_classes) classifier
-    gives_attention = False  # its input is a grid volume, not a bag of tiles
+    # return_attn gives layer 2's row over the pooled grid's tokens, which a
+    # bundle and the slide pipeline average into the tile count's shape as
+    # JAX's do (its serving bundles export CTMIL with attention)
+    gives_attention = True
 
     def __init__(self, n_classes: int, in_features: int = 2048, out_features: int = 512) -> None:
         super().__init__()

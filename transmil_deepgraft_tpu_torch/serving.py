@@ -16,8 +16,9 @@ programs.
 Every ported bag head serves (TransMIL, TransformerMIL, AttMIL, Chowder,
 RoFormerMIL, AttTrans/MonaiMILModel, CLAM_SB/MB, DTFD, MDMIL, DSMIL; the
 logits of DTFD's slide prediction, of MDMIL without its attention row, as
-JAX's ``_eval_forward`` takes them; CTMIL and ``resnet50`` take grid
-volumes, which a bundle does not carry, and are refused): the meta names
+JAX's ``_eval_forward`` takes them), and so do CTMIL and ``resnet50``, as
+JAX's bundles serve them: a bag is lifted to a 1 x n grid, and their
+BatchNorm statistics travel beside the params. The meta names
 the head, whether it is coord-aware, and its knobs (``knobs``:
 RoFormerMIL's ``num_landmarks``, MONAI's ``mil_mode``, ...); the widths and
 depths come from the weights, and a JAX bundle (whose meta has no knobs) gets the heads' defaults for the
@@ -89,18 +90,28 @@ def classifier_shape(model_name: str, params: Mapping[str, Any]) -> tuple[int, i
 def head_from_params(model_name: str, params: Mapping[str, Any], in_features: int,
                      knobs: Mapping[str, Any] | None = None,
                      device: str | torch.device | None = None) -> torch.nn.Module:
-    """A ported bag head with its flax-layout ``params``, in eval mode on
+    """A ported head with its flax-layout ``params``, in eval mode on
     ``device`` (None = CUDA): n_classes and the widths and depths from the
-    weights, the other knobs from ``knobs`` or the head's defaults."""
-    if model_name not in MODEL_REGISTRY or model_name in SPATIAL_HEADS:
-        served = sorted(set(MODEL_REGISTRY) - set(SPATIAL_HEADS))
-        raise ValueError(f"the port serves the bag heads {served}, not {model_name!r}"
-                         + (" (it takes grid volumes, which a bundle does not carry; "
-                            "ROADMAP A7)" if model_name in SPATIAL_HEADS else ""))
+    weights, the other knobs from ``knobs`` or the head's defaults. A
+    BatchNorm head's running statistics (CTMIL, ``resnet50``) are under
+    ``params['batch_stats']``, as a flax variables tree holds them beside
+    its ``params``.
+
+    The spatial heads serve as JAX's bundles serve them: a (B, n, D) bag is
+    lifted to one (1, B, n, D) grid (``models/ctmil.py``, as JAX's
+    ``models/ctmil.py:35-36``), so a batch-1 bag is a 1 x n strip."""
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"the port serves the heads {sorted(MODEL_REGISTRY)}, not "
+                         f"{model_name!r}")
+    stats = params.get("batch_stats")
+    params = {k: v for k, v in params.items() if k != "batch_stats"}
+    if model_name in SPATIAL_HEADS and stats is None:
+        raise ValueError(f"a {model_name} bundle needs its BatchNorm statistics "
+                         "('batch_stats' beside the params)")
     width, n_classes = classifier_shape(model_name, params)
     model = create_model(model_name, int(n_classes), in_features, int(width), device=device,
                          **head_knobs_from_params(model_name, params, knobs))
-    model.load_state_dict(head_state_dict_from_jax(model_name, params, in_features))
+    model.load_state_dict(head_state_dict_from_jax(model_name, params, in_features, stats))
     return model.eval()
 
 
@@ -382,9 +393,9 @@ class ServingBundle:
     @classmethod
     def load(cls, path: str | Path, device: str | torch.device | None = None) -> "ServingBundle":
         """Load a bundle of either package: the port's ``params.npz`` or the
-        JAX package's ``variables.msgpack`` (its ``batch_stats``, if any, are
-        not used by the ported heads; ``n_classes`` comes from the head's
-        weights when the meta has none). A slide bundle's backbone is rebuilt
+        JAX package's ``variables.msgpack`` (its ``batch_stats`` go to a
+        BatchNorm head; ``n_classes`` comes from the head's weights when the
+        meta has none). A slide bundle's backbone is rebuilt
         from its leaves; ``device`` None means CUDA."""
         with zipfile.ZipFile(path) as z:
             meta = json.loads(z.read("meta.json"))
@@ -407,8 +418,12 @@ class ServingBundle:
                                  "variables.msgpack (a bundle of the JAX package)")
         if meta.get("kind") == "slide":
             params, leaves = tree["head"]["params"], tree["backbone_leaves"]
-        else:  # the port writes a head's params alone, JAX its variables
-            params, leaves = (tree if "params.npz" in names else tree["params"]), None
+        elif "params.npz" in names:  # the port writes a head's params (and batch_stats)
+            params, leaves = tree, None
+        else:  # JAX writes its variables
+            params, leaves = tree["params"], None
+            if tree.get("batch_stats"):
+                params = {**params, "batch_stats": tree["batch_stats"]}
         if meta["model_name"] in MODEL_REGISTRY:
             meta.setdefault("n_classes", classifier_shape(meta["model_name"], params)[1])
         return cls(meta, params, device, leaves)

@@ -52,13 +52,31 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
   state, which :meth:`Trainer.load_train_state` resumes;
 - SIGTERM/SIGINT during ``fit``: the step in flight finishes, ``last.ckpt``
   gets the train state, and ``fit`` returns with ``preempted`` set;
-- ``metrics.jsonl`` / ``metrics.csv`` rows with the JAX Trainer's keys.
+- ``autosave_steps``: every n micro-steps ``last.ckpt`` gets the train state
+  with the current epoch (a resume restarts that epoch, as JAX's), copied to
+  the host in the step loop and written by a daemon thread, one write in
+  flight at most (``autosave_async``; else inline); the thread is joined
+  before each epoch's checkpoints, at preemption and at the end of ``fit``,
+  and a failed write raises at that join;
+- ``swa``: after each epoch from ``int(swa_start_frac * epochs)`` on, a
+  running mean of the parameters; at the end of ``fit`` the model takes it
+  and ``last.ckpt`` is rewritten with the weights alone;
+- AdaHessian (an ``adahessian`` optimizer, JAX's ``needs_hessian``): each
+  micro-step also takes the Hutchinson diagonal of the same loss
+  (``train/adahessian.py``, one forward, the probes from a
+  ``torch.Generator`` seeded from ``seed + 7`` and the epoch), handed to
+  the optimizer's step; a head JAX's AdaHessian cannot differentiate is
+  refused when the Trainer is built (ROADMAP C18);
+- ``metrics.jsonl`` / ``metrics.csv`` rows with the JAX Trainer's keys, and
+  with ``use_tensorboard`` the same scalars through tensorboardX under
+  ``tb/``.
 
 Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 :meth:`Trainer.load_train_state` also read the flax-msgpack ``.ckpt`` files
 of the JAX Trainer.
 
-Not ported yet (ROADMAP A5): SWA, autosave, TensorBoard and meshes.
+Not ported: ``ckpt_backend='orbax'`` (refused: neither machine has orbax)
+and meshes (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -84,6 +102,8 @@ from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, load_ba
 from transmil_deepgraft_tpu_torch.models.classic import ClassicTileClassifier
 from transmil_deepgraft_tpu_torch.models.dtfd import PseudoBagShuffle
 from transmil_deepgraft_tpu_torch.models.layers import Dropout
+from transmil_deepgraft_tpu_torch.train.adahessian import (
+    refuse_custom_vjp_heads, value_grad_and_diag_hessian)
 from transmil_deepgraft_tpu_torch.train.aggregation import (
     aggregate_patients, aggregate_tiles_to_patients)
 from transmil_deepgraft_tpu_torch.train.losses import LossFn
@@ -98,13 +118,11 @@ from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
 
 @dataclass
 class TrainerConfig:
-    """The JAX Trainer's fields and defaults. ``autosave_async`` and
-    ``eval_fn_cache`` have no effect in the port; ``prefetch_batches``
-    is the prefetch thread's depth, and 0 counts as 1 (the port always
-    stages batches on that thread); ``swa``,
-    ``autosave_steps``, ``use_tensorboard`` and
-    ``ckpt_backend='orbax'`` are refused (not ported yet, ROADMAP A5).
-    Checkpoints are ``torch.save`` files whatever ``ckpt_backend`` says."""
+    """The JAX Trainer's fields and defaults. ``eval_fn_cache`` has no
+    effect in the port; ``prefetch_batches`` is the prefetch thread's
+    depth, and 0 counts as 1 (the port always stages batches on that
+    thread); ``ckpt_backend='orbax'`` is refused. Checkpoints are
+    ``torch.save`` files."""
 
     epochs: int = 200
     patience: int = 50
@@ -138,16 +156,28 @@ class TrainerConfig:
 
 
 def _refuse_unported(cfg: TrainerConfig) -> None:
-    unported = {"swa": cfg.swa, "autosave_steps": cfg.autosave_steps > 0,
-                "use_tensorboard": cfg.use_tensorboard,
-                "ckpt_backend='orbax'": cfg.ckpt_backend == "orbax"}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet (ROADMAP A5): {', '.join(asked)}")
+    if cfg.ckpt_backend == "orbax":
+        raise NotImplementedError(
+            "ckpt_backend='orbax' is not ported: orbax and tensorstore are installed on neither "
+            "the CPU nor the GPU machine, and the port's checkpoints are torch.save files "
+            "(ckpt_backend='msgpack' writes those)")
 
 
 _FIT_START = {"epoch": 0, "best_val_loss": float("inf"), "epochs_since_best": 0,
               "plateau_since_best": 0, "plateau_best": float("inf")}
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of a (nested) checkpoint object with every tensor cloned to
+    the host, so that later steps do not change what a writer thread
+    saves."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
 
 
 def _write_csv(path: Path, columns: dict[str, list], index: bool) -> None:
@@ -185,6 +215,12 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         self.shuffle_generator = torch.Generator(device=self.device).manual_seed(config.seed + 2)
+        # AdaHessian takes the Hessian diagonal, with Rademacher probes (JAX
+        # draws them from seed + 7's stream), where JAX's can (ROADMAP C18)
+        self.needs_hessian = getattr(tx, "rule", None) == "adahessian"
+        if self.needs_hessian:
+            refuse_custom_vjp_heads(model)
+        self.hessian_generator = torch.Generator(device=self.device).manual_seed(config.seed + 7)
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
@@ -193,10 +229,14 @@ class Trainer:
 
         self.log_dir = Path(config.log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.logger = MetricLogger(self.log_dir)
+        self.logger = MetricLogger(self.log_dir, use_tensorboard=config.use_tensorboard)
         self.ckpts = CheckpointManager(self.log_dir / "checkpoints")
         self._resume_fit_state: Optional[dict] = None
         self.preempted = False
+        self._swa: Optional[list[torch.Tensor]] = None
+        self._swa_count = 0
+        self._autosave_thread: Optional[threading.Thread] = None
+        self._autosave_error: Optional[Exception] = None
         (self.log_dir / "run_meta.json").write_text(json.dumps({
             "model": model_name, "n_classes": n_classes,
             "config": {k: str(v) for k, v in vars(config).items()},
@@ -236,13 +276,24 @@ class Trainer:
 
     def train_step(self, bags: torch.Tensor, labels: torch.Tensor,
                    coords: Optional[torch.Tensor] = None) -> tuple[float, np.ndarray]:
-        """One micro-step: forward, backward, optimizer. Returns (loss, probs)."""
-        for p in self.model.parameters():
+        """One micro-step: forward, backward, optimizer. Returns (loss,
+        probs). Under AdaHessian the same forward also gives the
+        Hutchinson diagonal, which the optimizer's step takes."""
+        params = list(self.model.parameters())
+        for p in params:
             p.grad = None
-        loss, logits = self.loss(bags, labels, coords)
-        loss.backward()
-        self.tx.step()
-        return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
+        if not self.needs_hessian:
+            loss, logits = self.loss(bags, labels, coords)
+            loss.backward()
+            self.tx.step()
+            return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
+        (loss, logits), grads, diag = value_grad_and_diag_hessian(
+            lambda: self.loss(bags, labels, coords), params,
+            generator=self.hessian_generator, has_aux=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.tx.step(hessian=diag)
+        return loss.item(), torch.softmax(logits, dim=-1).cpu().numpy()
 
     def _batch_arrays(self, batch) -> tuple:
         """(bags, int64 labels, coords) of a batch, numpy: the (B, N, 2)
@@ -314,6 +365,7 @@ class Trainer:
                 "fit": {**fit, "epoch": epoch}}
 
     def _preempt_return(self, history: dict, epoch: int, fit: dict, step: int = -1) -> dict:
+        self._autosave_join()
         self.ckpts.save_last(self._train_state(epoch, fit))
         self.preempted = True
         self.logger.log(epoch, {"event": "preempted", "step": step})
@@ -332,7 +384,8 @@ class Trainer:
             # the dropout stream of an epoch depends on the epoch alone, so a
             # resumed run draws what a straight-through run draws
             for gen, seed in ((self.dropout_generator, self.cfg.seed + 1),
-                              (self.shuffle_generator, self.cfg.seed + 2)):
+                              (self.shuffle_generator, self.cfg.seed + 2),
+                              (self.hessian_generator, self.cfg.seed + 7)):
                 gen.manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
             for step, (batch, bags, labels, coords) in enumerate(
@@ -341,6 +394,8 @@ class Trainer:
                 losses.append(loss)
                 train_probs.append(probs)
                 train_labels.append(batch.labels)
+                if self.cfg.autosave_steps and (step + 1) % self.cfg.autosave_steps == 0:
+                    self._autosave(self._train_state(epoch, fit))
                 if self._preempted:
                     return self._preempt_return(history, epoch, fit, step)
                 if self.cfg.fast_dev_run:
@@ -362,6 +417,8 @@ class Trainer:
             }
             self.logger.log(epoch, metrics)
             history = metrics
+            if self.cfg.swa and epoch >= int(self.cfg.swa_start_frac * n_epochs):
+                self._swa_update()
 
             # early stopping on val_loss, Lightning EarlyStopping semantics:
             # improvement iff current < best - min_delta
@@ -385,6 +442,7 @@ class Trainer:
                     self.tx.lr_scale = lr_scale
                     fit["plateau_since_best"] = 0
 
+            self._autosave_join()  # no write in flight may race last.ckpt
             self.ckpts.save_epoch(
                 {"model": self.model.state_dict()}, epoch,
                 {k: metrics[k] for k in ("val_loss", "val_auc", "val_accuracy")},
@@ -396,7 +454,56 @@ class Trainer:
                 return {**history, "preempted": True}
             if stop:
                 break
+        self._autosave_join()
+        if self.cfg.swa and self._swa is not None:
+            with torch.no_grad():
+                for p, a in zip(self.model.parameters(), self._swa):
+                    p.copy_(a)
+            self.ckpts.save_last({"model": self.model.state_dict()})
         return history
+
+    def _swa_update(self) -> None:
+        """The running mean of the parameters over the epochs so far
+        (JAX: ``(a * c + p) / (c + 1)``; the reference's SWA callback)."""
+        params = [p.detach() for p in self.model.parameters()]
+        if self._swa is None:
+            self._swa, self._swa_count = [p.clone() for p in params], 1
+            return
+        c = self._swa_count
+        self._swa = [(a * c + p) / (c + 1) for a, p in zip(self._swa, params)]
+        self._swa_count += 1
+
+    def _autosave(self, state: dict) -> None:
+        """``last.ckpt`` <- ``state``: copied to the host here (the
+        consistency point), written by a daemon thread with
+        ``autosave_async`` (after the previous write, at most one in
+        flight), else inline."""
+        if not self.cfg.autosave_async:
+            self.ckpts.save_last(state)
+            return
+        self._autosave_join()
+        snapshot = _to_host(state)
+
+        def write() -> None:
+            try:
+                self.ckpts.save_last(snapshot)
+            except Exception as e:  # noqa: BLE001 - raised at the next join
+                self._autosave_error = e
+
+        self._autosave_thread = threading.Thread(target=write, name="autosave", daemon=True)
+        self._autosave_thread.start()
+
+    def _autosave_join(self) -> None:
+        """Wait for the autosave in flight; a failed write raises here
+        (training that believes it is preemption-safe while ``last.ckpt``
+        goes stale is worse than stopping)."""
+        if self._autosave_thread is not None:
+            self._autosave_thread.join()
+            self._autosave_thread = None
+        err, self._autosave_error = self._autosave_error, None
+        if err is not None:
+            raise RuntimeError(f"background autosave to {self.ckpts.last_path()} failed; "
+                               "training is no longer preemption-safe") from err
 
     # --------------------------------------------------------- checkpoints
     def _jax_state_dict(self, params: Any, stats: Any) -> dict:
@@ -446,7 +553,9 @@ class Trainer:
             names = [n for n, _ in self.model.named_parameters()]
             state = optimizer_state_from_jax(obj["opt_state"], self._in_features(), names,
                                              self.model_name,
-                                             lambda tree: self._jax_state_dict(tree, None))
+                                             lambda tree: self._jax_state_dict(tree, None),
+                                             rule=getattr(self.tx, "rule", "adam"),
+                                             params=obj["params"])
         self.tx.load_state_dict(state)
         fit = obj["fit"]
         self._resume_fit_state = {k: type(v)(np.asarray(fit[k])) for k, v in _FIT_START.items()

@@ -519,40 +519,139 @@ def _optax_fields(node: Any, found: dict) -> None:
             _optax_fields(value, found)
 
 
+def _optax_all(node: Any, name: str, out: list) -> list:
+    """Every value of the field ``name`` in ``node``'s optax states,
+    outermost first (two masked instances of one rule hold one each)."""
+    if hasattr(node, "_asdict"):
+        node = node._asdict()
+    if isinstance(node, Mapping):
+        if name in node:
+            out.append(node[name])
+        for value in node.values():
+            _optax_all(value, name, out)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _optax_all(value, name, out)
+    return out
+
+
+def _adafactor_state(node: Any) -> Optional[list]:
+    """JAX ``adafactor_ref``'s positional state ``(count, v_row, v_col, v,
+    mu)`` in ``node``: a 5-tuple (or its msgpack map ``{'0'..'4'}``) of a
+    scalar count and four trees."""
+    if hasattr(node, "_asdict"):
+        node = node._asdict()
+    items = None
+    if isinstance(node, (list, tuple)):
+        items = list(node)
+    elif isinstance(node, Mapping) and set(node) == {str(i) for i in range(5)}:
+        items = [node[str(i)] for i in range(5)]
+    if (items is not None and len(items) == 5 and np.ndim(items[0]) == 0
+            and not isinstance(items[0], Mapping)
+            and all(isinstance(t, Mapping) for t in items[1:])):
+        return items
+    children = node.values() if isinstance(node, Mapping) else (
+        node if isinstance(node, (list, tuple)) else ())
+    for value in children:
+        found = _adafactor_state(value)
+        if found is not None:
+            return found
+    return None
+
+
+def _merged(trees: list) -> dict:
+    """One tree from the states of disjoint ``optax.masked`` instances: each
+    leaf from the instance that holds it (a masked-out leaf is an empty
+    ``MaskedNode``)."""
+    flat: dict[str, np.ndarray] = {}
+    for tree in trees:
+        flat.update({k: v for k, v in flatten(_plain(tree)).items() if np.size(v)})
+    return unflatten(flat)
+
+
+def _plain(tree: Any) -> Any:
+    """Nested dicts with ``MaskedNode`` leaves (NamedTuples without fields)
+    as empty dicts, as flax msgpack writes them."""
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    if hasattr(tree, "_asdict"):
+        return {}
+    return tree
+
+
 def optimizer_state_from_jax(opt_state: Any, in_features: int, names: list[str],
                              model_name: str = "TransMIL",
-                             state_dict_of: Optional[Callable[[Any], dict]] = None) -> dict:
+                             state_dict_of: Optional[Callable[[Any], dict]] = None,
+                             rule: str = "radam", params: Any = None) -> dict:
     """The optax state of the JAX package's ``create_optimizer`` (numpy
     leaves, e.g. after ``jax.device_get``, or the ``opt_state`` map of a JAX
     ``last.ckpt``) -> a state for the port's
-    ``Optimizer.load_state_dict``, each per-parameter list ordered as
-    ``names`` (the model's ``named_parameters`` order); the moment trees
-    have the params' layout, so ``model_name``'s carry-over maps them (or
-    ``state_dict_of``, a params tree -> state dict, for a model that is no
-    head: the classic tile classifiers).
+    ``Optimizer.load_state_dict`` of ``rule`` (the port's rule name), each
+    per-parameter list ordered as ``names`` (the model's
+    ``named_parameters`` order); the moment trees have the params' layout,
+    so ``model_name``'s carry-over maps them (or ``state_dict_of``, a params
+    tree -> state dict, for a model that is no head: the classic tile
+    classifiers).
 
-    Reads ``ScaleByAdamState`` (count, mu, nu), ``TraceState`` (trace),
-    ``LookaheadState`` (slow_params, step), ``MultiStepsState`` (mini_step,
-    acc_grads) and the mutable lr scale; a missing piece keeps its initial
-    value. DTFD's state (``create_dtfd_optimizer``) goes to
+    Reads the states of every rule: ``ScaleByAdamState`` (adam, adamw,
+    radam, lamb), ``NadamRefState`` (with ``m_schedule``), ``AdamPState``,
+    ``AdaHessianState``, ``TraceState``/``SGDPState`` (the momentum trace),
+    ``ScaleByRmsState``, ``ScaleByAdaDeltaState``, novograd's (its halves
+    under two ``optax.masked`` merged by leaf), adafactor's ``(count, v_row,
+    v_col, v, mu)``; and ``LookaheadState`` (slow_params, step),
+    ``MultiStepsState`` (mini_step, acc_grads) and the mutable lr scale. A
+    missing piece keeps its initial value. novograd's per-tensor ``nu`` and
+    adafactor's moments are not elementwise: they are carried as they are,
+    in the flax layout the port's rules keep them in, matched to ``names``
+    through ``params`` (the JAX params tree, required for those two rules).
+    DTFD's state (``create_dtfd_optimizer``) goes to
     :func:`_dtfd_optimizer_state_from_jax`."""
     if model_name in ("DTFD", "DTFDMIL"):
         return _dtfd_optimizer_state_from_jax(opt_state, names)
     found: dict = {}
     _optax_fields(opt_state, found)
 
+    def convert(tree: Any) -> dict:
+        return (state_dict_of(tree) if state_dict_of is not None
+                else head_state_dict_from_jax(model_name, tree, in_features))
+
     def per_param(tree: Any) -> list[torch.Tensor]:
-        sd = (state_dict_of(tree) if state_dict_of is not None
-              else head_state_dict_from_jax(model_name, tree, in_features))
+        sd = convert(tree)
         return [sd[name] for name in names]
+
+    def as_is(tree: Any) -> list[torch.Tensor]:
+        """Leaves matched to ``names`` without a layout change: each
+        parameter's leaf path is found by carrying a marker of its index
+        over with the weights."""
+        flat_params = flatten(_plain(params))
+        paths = sorted(flat_params)
+        sd = convert(unflatten({path: np.full(np.shape(flat_params[path]), i, np.float32)
+                                for i, path in enumerate(paths)}))
+        flat = flatten(_plain(tree))
+        return [torch.from_numpy(np.array(flat[paths[int(sd[name].flatten()[0])]], np.float32))
+                for name in names]
 
     state = {"count": int(np.asarray(found.get("count", 0))),
              "mini_step": int(np.asarray(found.get("mini_step", 0))),
              "lookahead_step": int(np.asarray(found.get("step", 0))),
-             "lr_scale": float(np.asarray(found.get("lr_scale", 1.0)))}
-    for port_key, jax_key in (("mu", "mu"), ("nu", "nu"), ("trace", "trace"),
-                              ("slow", "slow_params"), ("acc", "acc_grads")):
-        state[port_key] = per_param(found[jax_key]) if jax_key in found else []
+             "lr_scale": float(np.asarray(found.get("lr_scale", 1.0))),
+             "m_schedule": float(np.asarray(found.get("m_schedule", 1.0)))}
+    for key in ("slow", "acc"):
+        jax_key = {"slow": "slow_params", "acc": "acc_grads"}[key]
+        state[key] = per_param(found[jax_key]) if jax_key in found else []
+    if rule == "adafactor":
+        count, v_row, v_col, v, mu = _adafactor_state(opt_state)
+        state["count"] = int(np.asarray(count))
+        state.update({"v_row": as_is(v_row), "v_col": as_is(v_col), "v": as_is(v),
+                      "mu": as_is(mu)})
+    elif rule == "novograd":
+        state["mu"] = per_param(_merged(_optax_all(opt_state, "mu", [])))
+        state["nu"] = [t.reshape(()) for t in as_is(_merged(_optax_all(opt_state, "nu", [])))]
+    else:
+        for port_key, jax_key in (("mu", "mu"), ("nu", "nu"), ("trace", "trace"),
+                                  ("trace", "momentum"), ("e_g", "e_g"), ("e_x", "e_x")):
+            if jax_key in found:
+                state[port_key] = per_param(found[jax_key])
     return state
 
 

@@ -472,17 +472,24 @@ def load_head_params(path: str | Path, in_features: int, model_name: str = "Tran
     state dict in the reference's names (a ``.pth``, a Lightning ``.ckpt``,
     the port's trainer checkpoints, whose weights are under ``model``),
     converted by ``model_name``, or a flax msgpack tree (a variables tree or
-    the JAX trainer's checkpoint, whose ``params`` are taken)."""
+    the JAX trainer's checkpoint, whose ``params`` are taken). A BatchNorm
+    head's running statistics (CTMIL, ``resnet50``) come under
+    ``params['batch_stats']`` (from a variables tree's ``batch_stats`` or a
+    trainer checkpoint's ``model_state``), as ``serving.head_from_params``
+    reads them."""
     if _is_torch_file(path):
         sd = load_torch_checkpoint(str(path))
         if isinstance(sd.get("model"), Mapping):  # the port's trainer checkpoints
             sd = sd["model"]
-        return convert_head_state_dict(sd, model_name, in_features)["params"]
-    tree = read_flax_msgpack(Path(path).read_bytes())
-    if isinstance(tree, dict) and "params" in tree:
-        return tree["params"]
-    raise ValueError(f"no 'params' in the flax checkpoint {path} (top-level keys: "
-                     f"{list(tree)[:8] if isinstance(tree, dict) else type(tree).__name__})")
+        variables = convert_head_state_dict(sd, model_name, in_features)
+    else:
+        variables = read_flax_msgpack(Path(path).read_bytes())
+        if not (isinstance(variables, dict) and "params" in variables):
+            raise ValueError(f"no 'params' in the flax checkpoint {path} (top-level keys: "
+                             f"{list(variables)[:8] if isinstance(variables, dict) else type(variables).__name__})")
+        variables = {**(variables.get("model_state") or {}), **variables}
+    stats = variables.get("batch_stats")
+    return {**variables["params"], "batch_stats": stats} if stats else variables["params"]
 
 
 def load_backbone_variables(path: str | Path) -> dict:
