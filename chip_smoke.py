@@ -120,7 +120,22 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
    step time), AdaHessian on AttMIL-2048
    and TransformerMIL-2048 (its diagonal held to the CPU's, its step against
    Adam's; TransMIL raises ROADMAP C18's error), and ``Trainer.fit`` with
-   SWA, a mid-epoch autosave and its resume, and TensorBoard.
+   SWA, a mid-epoch autosave and its resume, and TensorBoard;
+17. the multi-process paths (``phase_parallel``): NCCL as a world of one
+   (the join, an all_reduce, a data-parallel step); the int8 ResNet50's
+   layout variants on one chunk (``apply_qresnet50_wpack1`` bit-exact to
+   ``apply_qresnet50``, ``apply_qresnet50_bf16s1`` at cosine > 0.999 to
+   float32, their B7/B8 launches and chunk ms); then two gloo processes on
+   the one card: the tile-parallel embed of 1,024 uint8 tiles (chunk 128 a
+   process) bit for bit the one-process pipeline's, with B7/B8 4/3 a
+   process's chunk and the all_gather's ms; TransMIL-2048 ``use_pallas``
+   trained data-parallel (batch 4, 2 a process, 4 optimizer steps) within
+   1e-4 of the one-process fit, with B5/B6 and K1/K2 counted a process;
+   sequence-parallel Nystrom (sp 2, n 81,920, B3 with its row statistics
+   held to their plain version, B4) within 1e-4 of ``nystrom_attention``;
+   tensor-parallel TransMIL-2048 (tp 2, a 12,000-tile bag) within
+   tests/test_tp.py's bars. Their times are two processes sharing one card:
+   overhead, not scaling.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -3698,6 +3713,404 @@ def phase_train_rest(rng, results: dict, dev) -> None:
     log(f"[train_rest] phase {spent:.1f} s (budget {REST_BUDGET_S:.0f} s)")
 
 
+
+PAR_SEED = 17  # weights and inputs of phase 17, made alike in every process
+PAR_WORLD = 2  # gloo processes on the one card
+PAR_TILES = 1024  # the tile-parallel slide: 4 steps of 128 tiles a process
+PAR_TRAIN = {"n_train": 16, "n_val": 4, "n_test": 4}  # 4 optimizer steps at batch 4
+PAR_BATCH = 4  # 2 a process
+SP_N = 81920  # sequence-parallel Nystrom: 40,960 tokens a process
+TP_BAG = 12000
+TP_LOGIT_TOL, TP_GRAD_TOL = 2e-5, 5e-4  # tests/test_tp.py's bars
+LAYOUT_TILES = 128  # one chunk through the layout variants
+PAR_CHUNK_MS = "14.40-14.69"  # PERF.md section 5: a 128-tile chunk of apply_qresnet50
+
+
+def _par_inputs(dev):
+    """(ResNet50 variables, calibration tiles (normalized), the slide's uint8
+    tiles, TransMIL-2048 params) of phase 17, from PAR_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(PAR_SEED)
+    variables = random_resnet50_variables(rng)
+    tiles = rng.integers(0, 256, (PAR_TILES, TILE, TILE, 3), dtype=np.uint8)
+    calib = normalize_tiles(tiles[:CALIB_TILES])
+    return variables, calib, tiles, random_transmil_params(rng, 2048, 2)
+
+
+def _par_head(params, dev, **kw):
+    from transmil_deepgraft_tpu_torch.models import create_model
+    from transmil_deepgraft_tpu_torch.utils.jax_params import state_dict_from_jax
+
+    model = create_model("TransMIL", 2, 2048, device=dev, **kw)
+    model.load_state_dict(state_dict_from_jax(params, 2048))
+    return model
+
+
+def _par_datamodule():
+    from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
+
+    return MILDataModule(n_classes=2, max_bag_size=TRAIN_BAG, batch_size=PAR_BATCH, seed=PAR_SEED,
+                         synthetic={**PAR_TRAIN, "bag_size": TRAIN_BAG, "feature_size": 2048,
+                                    "signal": 0.5})
+
+
+def _par_fit(params, dev, log_dir: Path, mesh=None):
+    """TransMIL-2048 with use_pallas, lookahead_radam, one epoch of 4
+    optimizer steps at batch 4 (dropout off); returns (history, weights,
+    launches of the fit)."""
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.train import losses
+    from transmil_deepgraft_tpu_torch.train.optimizers import create_optimizer
+    from transmil_deepgraft_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    model = _par_head(params, dev, use_pallas=True)
+    cfg = TrainerConfig(epochs=1, log_dir=str(log_dir), train_deterministic=True,
+                        epoch_figures=False, export_topk_tiles=False, seed=PAR_SEED)
+    trainer = Trainer(model, create_optimizer("lookahead_radam"), _par_datamodule(), n_classes=2,
+                      loss_fn=losses.create_loss(), config=cfg, mesh=mesh)
+    nk.reset_launch_counts()
+    tk.reset_launch_counts()
+    history = trainer.fit()
+    sync(dev)
+    launches = {**nk.LAUNCHES, **tk.LAUNCHES}
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return history, weights, launches
+
+
+def _par_rank(rank: int, world: int, port: int, work: str, device_type: str) -> None:
+    """One gloo process of phase 17 on the parent's card (``device_type``
+    "cuda": cuda:0): the tile-parallel embed, dp training, sequence- and
+    tensor-parallel Nystrom; results to ``work/rank<r>.json`` (the parent
+    checks them)."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline
+    from transmil_deepgraft_tpu_torch.ops import nystrom_kernel as nk
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.ops import translayer_kernel as tk
+    from transmil_deepgraft_tpu_torch.ops.nystrom import nystrom_attention
+    from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, init_multihost, make_mesh
+    from transmil_deepgraft_tpu_torch.parallel.sp_nystrom import sp_nystrom_attention
+    from transmil_deepgraft_tpu_torch.parallel.tile_parallel import gather_rows
+    from transmil_deepgraft_tpu_torch.parallel.tp import tp_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0)
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    work = Path(work)
+    init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    out: dict = {"rank": rank}
+    variables, calib, tiles, head_params = _par_inputs(dev)
+
+    # (a) the tile-parallel slide embed: CHUNK tiles a process a step
+    mesh = make_mesh(dp=world, device_type=device_type)
+    pipe = SlideInferencePipeline(variables, _par_head(head_params, dev), calib_tiles=calib,
+                                  chunk=CHUNK, device=dev, mesh=mesh)
+    pipe.predict_slide(tiles[:CHUNK * world])  # warm-up, outside the counted run
+    qk.reset_launch_counts()
+    tk.reset_launch_counts()
+    feats = pipe.embed_device(tiles)
+    probs = pipe._probs(feats)
+    sync(dev)
+    out["embed_launches"] = {**qk.LAUNCHES, **tk.LAUNCHES}
+    want = np.load(work / "one_rank_features.npy")
+    got = feats.cpu().numpy()
+    out["embed_equal"] = bool(np.array_equal(got, want))
+    out["embed_codes_differing"] = int((got != want).sum())
+    out["probs"] = probs.tolist()
+    block = torch.zeros(CHUNK, 2048, device=dev)
+    out["all_gather_ms"] = cuda_ms(lambda: gather_rows(block, mesh.get_group("dp")))
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        pipe.embed_device(tiles)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["embed_ms"] = sorted(times)[1]
+    del pipe, feats
+
+    # (b) data-parallel training, batch 4 = 2 a process
+    history, weights, launches = _par_fit(head_params, dev, work / "dp_fit", mesh=mesh)
+    one = torch.load(work / "one_rank_fit.pt", weights_only=False)
+    out["fit_loss"], out["fit_loss_one_rank"] = history["loss"], one["history"]["loss"]
+    out["fit_val_loss"], out["fit_val_loss_one_rank"] = history["val_loss"], one["history"]["val_loss"]
+    out["fit_weight_err"] = max(float((weights[k] - one["weights"][k]).abs().max())
+                                for k in weights)
+    out["fit_launches"] = launches
+
+    # (c) sequence-parallel Nystrom, sp = world, at the kernels' shape
+    sp_mesh = make_mesh(dp=1, sp=world, device_type=device_type)
+    j = axis_rank(sp_mesh, "sp")
+    rng = np.random.default_rng(PAR_SEED + 1)
+    qkv = [torch.from_numpy(rng.standard_normal((1, 8, SP_N, 64), dtype=np.float32)).to(dev)
+           for _ in range(3)]
+    n_loc = SP_N // world
+    local = [x[:, :, j * n_loc:(j + 1) * n_loc].contiguous() for x in qkv]
+    with torch.inference_mode():
+        nk.reset_launch_counts()
+        sp_out = sp_nystrom_attention(*local, sp_mesh, num_landmarks=256)
+        sync(dev)
+        out["sp_launches"] = dict(nk.LAUNCHES)
+        want_sp = nystrom_attention(*qkv, num_landmarks=256).out[:, :, j * n_loc:(j + 1) * n_loc]
+        out["sp_err"] = float((sp_out - want_sp).abs().max())
+        out["sp_ms"] = cuda_ms(lambda: sp_nystrom_attention(*local, sp_mesh, num_landmarks=256),
+                               reps=5)
+        out["one_rank_fused_ms"] = cuda_ms(lambda: nk.nystrom_attention_fused(*qkv, 256, 6), reps=5)
+        # B3's row statistics against their plain version on this segment
+        q_lm = torch.from_numpy((0.125 * rng.standard_normal((8, 256, 64))).astype(np.float32))
+        q_lm = q_lm.to(dev)
+        k_flat, v_flat = local[1].reshape(8, n_loc, 64), local[2].reshape(8, n_loc, 64)
+        got_a, got_lse = nk.landmark_attention(q_lm, k_flat, v_flat, return_stats=True)
+        want_a, want_lse = nk.landmark_attention_reference(q_lm, k_flat, v_flat, return_stats=True)
+        out["stats_err"] = float((got_lse - want_lse).abs().max())
+        out["stats_rows_err"] = float((got_a - want_a).abs().max())
+        out["stats_ms"] = cuda_ms(lambda: nk.landmark_attention(q_lm, k_flat, v_flat,
+                                                                return_stats=True))
+        out["no_stats_ms"] = cuda_ms(lambda: nk.landmark_attention(q_lm, k_flat, v_flat))
+    del qkv, local, sp_out, want_sp
+
+    # (d) tensor parallelism, tp = world, over a 12,000-tile bag
+    tp_mesh = init_device_mesh(device_type, (1, world), mesh_dim_names=("dp", "tp"))
+    bag = torch.from_numpy(np.random.default_rng(PAR_SEED + 2).standard_normal(
+        (1, TP_BAG, 2048), dtype=np.float32)).to(dev)
+    ref, sharded = (_par_head(head_params, dev, use_pallas=True).eval() for _ in range(2))
+    sharded = tp_shard(sharded, tp_mesh)
+    results = []
+    for model in (ref, sharded):
+        logits = model(bag)
+        torch.log_softmax(logits, -1)[:, 1].sum().neg().backward()
+        results.append((logits.detach(), dict(model.named_parameters())))
+    sync(dev)
+    (ref_logits, ref_p), (tp_logits, tp_p) = results
+    r = axis_rank(tp_mesh, "tp")
+    grad_err = 0.0
+    for name, p in tp_p.items():
+        full = ref_p[name].grad
+        if name.endswith("to_qkv.weight"):
+            full = full.chunk(world, dim=0)[r]
+        elif name.endswith("to_out.0.weight"):
+            full = full.chunk(world, dim=1)[r]
+        grad_err = max(grad_err, float((p.grad - full).abs().max()))
+    out["tp_logit_err"] = float((tp_logits - ref_logits).abs().max())
+    out["tp_grad_err"] = grad_err
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel(rng, results: dict, dev) -> None:
+    """Phase 17: the multi-process paths on the one card. Parent: the
+    one-process references (the slide's features, the fit), NCCL as a world
+    of one (the join, an all_reduce, a data-parallel step), the int8
+    ResNet50's layout variants on one chunk. Then two gloo processes on
+    cuda:0 (``_par_rank``): the tile-parallel embed (bit for bit), dp
+    training (within 1e-4), sp = 2 Nystrom with B3's row statistics (within
+    1e-4), tp = 2 TransMIL (tests/test_tp.py's bars). Two processes on one
+    card share it: their times are overhead, not scaling."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline
+    from transmil_deepgraft_tpu_torch.models.resnet import resnet50
+    from transmil_deepgraft_tpu_torch.models import resnet_int8 as ri
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.ops.pinv import divisor_reduced_over
+    from transmil_deepgraft_tpu_torch.parallel.mesh import init_multihost, make_mesh
+    from transmil_deepgraft_tpu_torch.train.trainer import _mean_over
+    from transmil_deepgraft_tpu_torch.utils.jax_params import resnet_state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    variables, calib, tiles, head_params = _par_inputs(dev)
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # NCCL as a world of one: the join, an all_reduce, a data-parallel step
+    rank, world = init_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != backend or (rank, world) != (0, 1):
+        raise AssertionError(f"expected an {backend} world of one, got {dist.get_backend()} "
+                             f"{rank}/{world}")
+    mesh = make_mesh(dp=1, device_type=dev.type)
+    group = mesh.get_group("dp")
+    x = torch.arange(4.0, device=dev)
+    dist.all_reduce(x, group=group)
+    model = _par_head(head_params, dev, use_pallas=True).eval()  # dropout off, B5/B6 kept
+    bag = torch.from_numpy(np.random.default_rng(PAR_SEED).standard_normal(
+        (1, TRAIN_BAG, 2048), dtype=np.float32)).to(dev)
+    grads = []
+    for reduce in (False, True):
+        model.zero_grad()
+        with divisor_reduced_over(group if reduce else None):
+            torch.log_softmax(model(bag), -1)[:, 0].sum().neg().backward()
+        g = [p.grad.clone() for p in model.parameters()]
+        if reduce:
+            _mean_over(g, group)
+        grads.append(g)
+    sync(dev)
+    if not (torch.equal(x, torch.arange(4.0, device=dev))
+            and all(torch.equal(a, b) for a, b in zip(*grads))):
+        raise AssertionError("the NCCL world of one changed a value")
+    dist.destroy_process_group()
+    log(f"[parallel] {backend} world of one: joined, all_reduce, a data-parallel step (divisor "
+        "MAX-reduced, gradients mean-reduced) bit for bit the plain step's")
+
+    # the layout variants on one chunk, on the card
+    q = ri.build_qresnet50(variables, calib, device=dev)
+    x = torch.from_numpy(normalize_tiles(tiles[:LAYOUT_TILES])).to(dev)
+    prep = ri.prepare_qresnet50_fused(q)
+    s1 = ri.build_bf16_stage1(variables, calib, device=dev)
+    with torch.inference_mode():
+        full = ri.apply_qresnet50(q, x)
+        qk.reset_launch_counts()
+        wpack = ri.apply_qresnet50_wpack1(prep, x)
+        sync(dev)
+        wpack_launches = dict(qk.LAUNCHES)
+        qk.reset_launch_counts()
+        mixed = ri.apply_qresnet50_bf16s1(q, s1, x)
+        sync(dev)
+        bf16_launches = dict(qk.LAUNCHES)
+        model = resnet50()
+        model.load_state_dict(resnet_state_dict_from_jax(variables))
+        ref = model.to(dev).eval()(x)
+        times = {name: cuda_ms(fn, reps=5) for name, fn in (
+            ("apply_qresnet50", lambda: ri.apply_qresnet50(q, x)),
+            ("apply_qresnet50_wpack1", lambda: ri.apply_qresnet50_wpack1(prep, x)),
+            ("apply_qresnet50_bf16s1", lambda: ri.apply_qresnet50_bf16s1(q, s1, x)))}
+
+    def cos(a, b):
+        return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+
+    cos_mixed, cos_full = cos(ref, mixed), cos(ref, full)
+    log(f"[parallel] layout variants on {LAYOUT_TILES} tiles: wpack1 bit-exact "
+        f"{torch.equal(wpack, full)}, launches {wpack_launches}; bf16s1 cosine to float32 "
+        f"{cos_mixed:.6f} (full int8 {cos_full:.6f}), launches {bf16_launches}; chunk ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" (PERF.md section 5's pipeline chunk: {PAR_CHUNK_MS} ms)")
+    if not torch.equal(wpack, full):
+        raise AssertionError("apply_qresnet50_wpack1 is not bit-exact to apply_qresnet50")
+    if wpack_launches != {"qstage_run": 4, "qentry_run": 3}:
+        raise AssertionError(f"wpack1 launches {wpack_launches}")
+    if bf16_launches != {"qstage_run": 3, "qentry_run": 3}:
+        raise AssertionError(f"bf16s1 launches {bf16_launches}")
+    if not (cos_mixed > 0.999 and cos_mixed >= cos_full - 1e-4):
+        raise AssertionError(f"bf16s1 cosine {cos_mixed} (full int8 {cos_full})")
+    del q, prep, s1, model, full, wpack, mixed, ref, x
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # the one-process references
+        pipe = SlideInferencePipeline(variables, _par_head(head_params, dev), calib_tiles=calib,
+                                      chunk=CHUNK, device=dev)
+        feats = pipe.embed_device(tiles)
+        probs = pipe._probs(feats)
+        np.save(work / "one_rank_features.npy", feats.cpu().numpy())
+        one_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipe.embed_device(tiles)
+            sync(dev)
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        del pipe, feats
+        history, weights, one_launches = _par_fit(head_params, dev, work / "one_fit")
+        torch.save({"history": history, "weights": weights}, work / "one_rank_fit.pt")
+        log(f"[parallel] one process: {PAR_TILES}-tile embed {sorted(one_ms)[1]:.2f} ms, probs "
+            f"{probs.tolist()}; fit loss {history['loss']:.6f}, launches {one_launches}")
+
+        t0 = time.perf_counter()
+        mp.spawn(_par_rank, args=(PAR_WORLD, free_port(), str(work), dev.type),
+                 nprocs=PAR_WORLD, join=True)
+        log(f"[parallel] {PAR_WORLD} gloo processes on cuda:0: {time.perf_counter() - t0:.1f} s "
+            "with their start")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+
+    steps = -(-PAR_TILES // (CHUNK * PAR_WORLD))
+    per_step = PAR_TRAIN["n_train"] // PAR_BATCH
+    val_bags = PAR_TRAIN["n_val"] // PAR_WORLD
+    want_embed = {"qstage_run": 4 * steps, "qentry_run": 3 * steps, "translayer_k1": 2,
+                  "translayer_k2": 2}
+    want_fit = {"nystrom_landmark_attn": 2 * per_step, "nystrom_query_lm": 2 * per_step,
+                "translayer_k1": 2 * val_bags, "translayer_k2": 2 * val_bags}
+    for r in ranks:
+        log(f"[parallel] rank {r['rank']}: embed bit-exact {r['embed_equal']} "
+            f"({r['embed_codes_differing']} features differ), launches {r['embed_launches']}, "
+            f"all_gather of ({CHUNK}, 2048) {r['all_gather_ms']:.3f} ms, {PAR_TILES}-tile embed "
+            f"{r['embed_ms']:.2f} ms (one process: {sorted(one_ms)[1]:.2f}); dp fit loss "
+            f"{r['fit_loss']:.6f} vs {r['fit_loss_one_rank']:.6f}, weights max|d| "
+            f"{r['fit_weight_err']:.3e}, launches {r['fit_launches']}; sp={PAR_WORLD} n={SP_N} "
+            f"max|err| {r['sp_err']:.3e}, launches {r['sp_launches']}, {r['sp_ms']:.3f} ms "
+            f"(one process, fused: {r['one_rank_fused_ms']:.3f}); B3 statistics max|err| "
+            f"{r['stats_err']:.3e} (rows {r['stats_rows_err']:.3e}), {r['stats_ms']:.4f} ms "
+            f"vs {r['no_stats_ms']:.4f} without; tp={PAR_WORLD} logits max|d| "
+            f"{r['tp_logit_err']:.3e}, gradients {r['tp_grad_err']:.3e}")
+        checks = {
+            "the tile-parallel embed is bit-exact": r["embed_equal"],
+            "its probabilities": np.abs(np.asarray(r["probs"]) - probs).max() <= 1e-6,
+            "its launches": r["embed_launches"] == want_embed,
+            "dp loss within 1e-4": abs(r["fit_loss"] - r["fit_loss_one_rank"]) <= 1e-4,
+            "dp val loss within 1e-4": abs(r["fit_val_loss"] - r["fit_val_loss_one_rank"]) <= 1e-4,
+            "dp weights within 1e-4": r["fit_weight_err"] <= 1e-4,
+            "dp launches": r["fit_launches"] == want_fit,
+            "sp within 1e-4": r["sp_err"] <= SPLIT_TOL,
+            "sp launches": r["sp_launches"] == {"nystrom_landmark_attn": 1, "nystrom_query_lm": 1},
+            "B3 statistics within 1e-4": max(r["stats_err"], r["stats_rows_err"]) <= SPLIT_TOL,
+            "tp logits": r["tp_logit_err"] <= TP_LOGIT_TOL,
+            "tp gradients": r["tp_grad_err"] <= TP_GRAD_TOL,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"phase 17, rank {r['rank']}: {failed}")
+    r0 = ranks[0]
+    results["nystrom_landmark_attn"].update(
+        sp_stats_max_abs_err=max(r["stats_err"] for r in ranks), sp_stats_ms=r0["stats_ms"],
+        sp_no_stats_ms=r0["no_stats_ms"], sp_launches=r0["sp_launches"]["nystrom_landmark_attn"],
+        dp_launches_per_process=r0["fit_launches"]["nystrom_landmark_attn"])
+    results["nystrom_query_lm"].update(
+        sp_launches=r0["sp_launches"]["nystrom_query_lm"],
+        dp_launches_per_process=r0["fit_launches"]["nystrom_query_lm"])
+    for name in ("qstage_run", "qentry_run"):
+        results[name].update(tile_parallel_launches_per_process=r0["embed_launches"][name],
+                             wpack1_launches=wpack_launches[name],
+                             bf16s1_launches=bf16_launches[name])
+    results["qstage_run"].update(chunk_ms=times)
+    for name in ("translayer_k1", "translayer_k2"):
+        results[name].update(dp_val_launches_per_process=r0["fit_launches"][name])
+    log(f"[env] parallel phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def card_name_and_limit(attempts: int = 3, timeout_s: int = 20) -> str:
+    """The card's name and power limit as nvidia-smi prints them, read once at
+    the start. nvidia-smi can stall on a busy machine: a stalled query is
+    asked again."""
+    def query() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=timeout_s,
+        ).stdout.strip().splitlines()[0]
+
+    for _ in range(attempts - 1):
+        try:
+            return query()
+        except subprocess.TimeoutExpired:
+            log(f"[env] nvidia-smi stalled for {timeout_s} s; asking again")
+    return query()
+
+
 def main() -> int:
     try:
         import torch
@@ -3719,6 +4132,7 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    smi = card_name_and_limit()
     rng = np.random.default_rng(0)
     results: dict = {}
     phase_build()
@@ -3747,10 +4161,7 @@ def main() -> int:
     phase_backbones(rng, results, dev)
     phase_tools(rng, results, dev)
     phase_train_rest(rng, results, dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    phase_parallel(rng, results, dev)
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": list(results.values())}))

@@ -263,13 +263,18 @@ def test_infer_matches_the_jax_cli(checkpoints, capsys):
     assert json.loads((root / "port_out" / "predictions.json").read_text()) == got
 
 
-def test_infer_refuses_what_the_port_lacks(checkpoints):
+def test_infer_refuses_what_the_port_lacks(checkpoints, monkeypatch):
     """A classic network is no bag head: refused as JAX's create_model
-    refuses it (ROADMAP C13); several chips wait on ROADMAP item 10."""
+    refuses it (ROADMAP C13). ``--n_chips`` beyond the cards is refused as
+    JAX's CLI refuses more chips than devices, and under a launcher its
+    world must be ``--n_chips`` (tests/test_torch_parallel.py runs it)."""
     args = _infer_args(checkpoints, checkpoints / "x")
     with pytest.raises(SystemExit, match="unknown model, not a bag head"):
         infer.main(args + ["--model", "vit", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 10"):
+    with pytest.raises(SystemExit, match="available devices"):
+        infer.main(args + ["--n_chips", "64", "--device", "cuda"])
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match="WORLD_SIZE 3"):
         infer.main(args + ["--n_chips", "2", "--device", "cpu"])
 
 

@@ -306,6 +306,53 @@ def test_landmark_kernel_holds_long_splits_with_biased_values(cuda_device, b, n)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,n", [(16, 1280), (8, 41472), (128, 512)],
+                         ids=["splits-1280", "splits-41472", "one-split-512"])
+def test_landmark_kernel_row_statistics_match_plain_version(cuda_device, bh, n):
+    """B3 with its row statistics, as sequence parallelism calls it: each
+    landmark row's log-sum-exp of the scores (natural base) within 1e-4 of
+    the plain version's ``torch.logsumexp``, written by the merging block
+    (several splits) and by the block of a lone split; the rows within 1e-4
+    as without statistics."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bh + n)
+    q_lm = torch.from_numpy((0.125 * rng.standard_normal((bh, 256, 64))).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((bh, n, 64)).astype(np.float32))
+            for _ in range(2))
+    q_lm, k, v = q_lm.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    per, splits = nk.landmark_plan(bh, n, nk._sm_count(cuda_device.index or 0))
+    assert (splits == 1) == (n == 512)
+    got, lse = nk.landmark_attention(q_lm, k, v, return_stats=True)
+    torch.cuda.synchronize()
+    want, want_lse = nk.landmark_attention_reference(q_lm, k, v, return_stats=True)
+    assert lse.shape == (bh, 256)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1280, 512])
+def test_landmark_kernel_without_statistics_is_unchanged(cuda_device, n):
+    """The statistics pointer is null by default: the rows of a call without
+    it are bit for bit those of a call with it, and the packed route (B5),
+    which never asks for them, repeats itself bit for bit."""
+    rng = np.random.default_rng(n)
+    bh = 16 if n == 1280 else 128
+    q_lm = torch.from_numpy((0.125 * rng.standard_normal((bh, 256, 64))).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((bh, n, 64)).astype(np.float32))
+            for _ in range(2))
+    q_lm, k, v = q_lm.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    plain = nk.landmark_attention(q_lm, k, v)
+    with_stats, _ = nk.landmark_attention(q_lm, k, v, return_stats=True)
+    qkv = torch.stack([k.view(2, bh // 2, n, 64)] * 3, dim=2).permute(0, 3, 2, 1, 4).contiguous()
+    packed = [nk.landmark_attention_packed(q_lm.view(2, bh // 2, 256, 64), qkv)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(plain, with_stats)
+    assert torch.equal(packed[0], packed[1])
+
+
+@pytest.mark.cuda
 def test_nystrom_landmark_launcher_refuses_a_bad_plan(cuda_device):
     """The landmark kernel's C launcher checks the plan it is given: a split
     plan that misses a key tile, or scratch too small for its partials or
@@ -326,7 +373,7 @@ def test_nystrom_landmark_launcher_refuses_a_bad_plan(cuda_device):
     def launch(per, splits, part_floats, counter_words):
         return lib.nystrom_landmark_attn(
             q_lm.data_ptr(), kv.data_ptr(), kv.data_ptr(), h * n * d, n * d, d, out.data_ptr(),
-            part.data_ptr(), part_floats, counters.data_ptr(), counter_words, b, h, n, per,
+            None, part.data_ptr(), part_floats, counters.data_ptr(), counter_words, b, h, n, per,
             splits, stream)
 
     invalid = 1  # cudaErrorInvalidValue

@@ -73,6 +73,34 @@ def test_tracker_takes_watts_from_the_card_or_the_caller(monkeypatch):
     assert tsus.EnergyTracker(chip_watts=123.0).chip_watts == 123.0
 
 
+def test_card_watts_asks_a_stalled_query_again_and_reads_once(monkeypatch):
+    calls = []
+
+    def run(cmd, timeout, **kw):
+        calls.append(cmd)
+        if len(calls) < tsus.SMI_ATTEMPTS:
+            raise tsus.subprocess.TimeoutExpired(cmd, timeout)
+        return types.SimpleNamespace(stdout="650.00\n")
+
+    monkeypatch.setattr(tsus.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsus.subprocess, "run", run)
+    monkeypatch.setattr(tsus, "_card_watts_cache", {})
+    assert tsus.card_watts("cuda:3") == 650.0
+    assert tsus.card_watts("cuda:3") == 650.0  # from the first read
+    assert len(calls) == tsus.SMI_ATTEMPTS and all("--id=3" in c for c in calls)
+
+    def stalled(cmd, timeout, **kw):
+        calls.append(cmd)
+        raise tsus.subprocess.TimeoutExpired(cmd, timeout)
+
+    calls.clear()
+    monkeypatch.setattr(tsus.subprocess, "run", stalled)
+    with pytest.raises(ValueError, match="chip_watts"):
+        tsus.card_watts("cuda:1")
+    assert len(calls) == tsus.SMI_ATTEMPTS
+    assert 1 not in tsus._card_watts_cache
+
+
 def test_regional_impact_rows_and_files_equal_jax(tmp_path):
     assert tsus.REGION_GCO2_PER_KWH == jsus.REGION_GCO2_PER_KWH
     for kwh, regions in ((12.5, None), (2.0, {"A": 100.0, "B": 50.0})):

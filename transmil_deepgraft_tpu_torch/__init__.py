@@ -20,6 +20,7 @@ cannot build; the bag store's ``native/bagstore.cpp`` is built the same way.
 
 Entry points take ``device=None`` (``--device`` on the command line), which
 means ``"cuda"``; without a card they raise unless ``device="cpu"`` is passed.
+Several cards run one process each over ``torch.distributed`` (``parallel/``).
 """
 
 __version__ = "0.1.0"

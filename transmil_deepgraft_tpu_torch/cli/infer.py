@@ -10,13 +10,22 @@ coordinates from their file names, as in the JAX CLI.
 
 Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
 port's trainer checkpoints) converted by ``utils/torch_weights``, or flax
-msgpack variable trees."""
+msgpack variable trees.
+
+``--n_chips k`` embeds tile-parallel over k processes, one card each
+(``SlideInferencePipeline(mesh=)``). Outside a launcher the command starts
+the k processes itself (``torch.multiprocessing``, a free local port), so it
+stays one command, as JAX's is; under torchrun ``WORLD_SIZE`` must be k.
+With ``--device cpu`` the k processes are gloo ranks on the CPU. Rank 0
+writes the CSVs and ``predictions.json``."""
 
 from __future__ import annotations
 
 import argparse
 import csv
 import json
+import os
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -45,7 +54,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--out_dir", default="inference_out")
     p.add_argument("--n_chips", type=int, default=1,
-                   help="devices for a tile-parallel embed; the port runs on one")
+                   help="processes (one card each) for a tile-parallel embed")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain versions)")
     return p
@@ -71,9 +80,26 @@ def main(argv: list[str] | None = None) -> list[dict]:
         raise SystemExit(f"--model {args.model} gives no per-tile attention for the top-k "
                          "tiles (JAX's cli.infer cannot run it either); serve it from a slide "
                          "bundle: cli.export_model --backbone_ckpt, then cli.serve")
+    mesh, rank = None, 0
     if args.n_chips > 1:
-        raise SystemExit("--n_chips > 1: the multi-device embed comes with ROADMAP queue A "
-                         "item 10")
+        import torch
+
+        on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        cards = torch.cuda.device_count() if not on_cpu and torch.cuda.is_available() else 0
+        if not on_cpu and cards < args.n_chips:
+            raise SystemExit(f"--n_chips {args.n_chips} > available devices {cards}")
+        if "WORLD_SIZE" not in os.environ:  # no launcher: start the processes here
+            return _spawn(argv, args.n_chips, Path(args.out_dir))
+        if int(os.environ["WORLD_SIZE"]) != args.n_chips:
+            raise SystemExit(f"--n_chips {args.n_chips} under a launcher of WORLD_SIZE "
+                             f"{os.environ['WORLD_SIZE']}: they must be equal")
+        from transmil_deepgraft_tpu_torch.parallel.mesh import (
+            init_multihost, make_mesh, rank_device)
+
+        rank, _ = init_multihost(backend="gloo" if on_cpu else None)
+        if not on_cpu:
+            args.device = str(rank_device())
+        mesh = make_mesh(dp=args.n_chips, device_type="cpu" if on_cpu else "cuda")
     device = resolve_device(args.device)  # before any weights are read
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -103,7 +129,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
                     decode_tile_paths(tile_paths[:min(64, len(tile_paths))], args.tile_size))
             pipeline = SlideInferencePipeline(
                 bb_vars, head, calib_tiles=calib, chunk=args.chunk,
-                fused_backbone=args.quantize == "int8_fused", device=device,
+                fused_backbone=args.quantize == "int8_fused", device=device, mesh=mesh,
             )
         coords = None
         if pipeline.coord_aware:  # the real (x-y) file-name coords
@@ -113,12 +139,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
         )
         order = np.argsort(attn)[::-1][:args.topk]
         topk_csv = out_dir / f"{slide_dir.name}_topk_tiles.csv"
-        with open(topk_csv, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["tile", "x", "y", "attention"])
-            for i in order:
-                x, y = parse_coords(tile_paths[i].name)
-                w.writerow([tile_paths[i].name, x, y, float(attn[i])])
+        if rank == 0:
+            with open(topk_csv, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["tile", "x", "y", "attention"])
+                for i in order:
+                    x, y = parse_coords(tile_paths[i].name)
+                    w.writerow([tile_paths[i].name, x, y, float(attn[i])])
         results.append(
             {
                 "slide": slide_dir.name,
@@ -129,10 +156,50 @@ def main(argv: list[str] | None = None) -> list[dict]:
             }
         )
 
-    (out_dir / "predictions.json").write_text(json.dumps(results, indent=2))
-    decoder = "native libjpeg" if native_tiles.available() else "PIL"
-    print(json.dumps({"slides": len(results), "out_dir": str(out_dir), "decoder": decoder}))
+    if rank == 0:
+        (out_dir / "predictions.json").write_text(json.dumps(results, indent=2))
+        decoder = "native libjpeg" if native_tiles.available() else "PIL"
+        print(json.dumps({"slides": len(results), "out_dir": str(out_dir), "decoder": decoder,
+                          "processes": args.n_chips}))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
     return results
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv: list[str] | None, world: int, port: int) -> None:
+    """One spawned process: torchrun's environment, then :func:`main`."""
+    import torch
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if "OMP_NUM_THREADS" not in os.environ:  # the processes share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    main(argv)
+
+
+def _spawn(argv: list[str] | None, world: int, out_dir: Path) -> list[dict]:
+    """Start ``world`` processes of this command on a free local port, wait
+    for all of them, and return rank 0's results."""
+    import sys
+
+    import torch.multiprocessing as mp
+
+    # by the module's own name, so that the spawned processes import it even
+    # when this one runs it as __main__
+    from transmil_deepgraft_tpu_torch.cli.infer import _rank_main as target
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    mp.spawn(target, args=(argv, world, _free_port()), nprocs=world, join=True)
+    return json.loads((out_dir / "predictions.json").read_text())
 
 
 if __name__ == "__main__":

@@ -34,13 +34,20 @@ tiles, its BatchNorm trained, eval aggregated tile -> slide -> patient. As
 in JAX, ``Model.name`` must still be a bag head (which that route builds and
 drops): the classic configs, whose ``Model.name`` is the network, raise
 JAX's KeyError (ROADMAP C13).
+
+Data-parallel training runs one process a card under torchrun:
+``torchrun --nproc_per_node k -m transmil_deepgraft_tpu_torch.cli.train
+--config C.yaml`` (each process on ``cuda:LOCAL_RANK``, NCCL; with
+``--device cpu`` gloo processes on the CPU). dp is the world size, which must
+divide the configured batch: JAX's CLI takes ``gcd(batch, devices)`` of the
+devices of one process, while here every launched process must train
+(ROADMAP C23).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 from pathlib import Path
 
 import torch
@@ -90,7 +97,35 @@ def _model_extras(cfg, model_name: str) -> dict:
     return {k: cfg.Model[k] for k in MODEL_KNOBS if k in declared and k in cfg.Model}
 
 
-def build(cfg, log_dir: str | None = None, device: str | None = None):
+def _join(batch_size: int, device: str | None):
+    """Under a launcher: join the group and make the dp mesh; returns
+    (mesh, device). A single process returns (None, device)."""
+    import os
+
+    from transmil_deepgraft_tpu_torch.parallel.mesh import (
+        init_multihost, make_mesh, rank_device)
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1 and batch_size % world:
+        fits = max(d for d in range(1, world + 1) if batch_size % d == 0)
+        raise SystemExit(f"data-parallel training needs the world size to divide the batch: "
+                         f"batch {batch_size}, world {world}; launch {fits} processes "
+                         f"(ROADMAP C23)")
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    _, world = init_multihost(backend="gloo" if on_cpu else None)
+    if world == 1:
+        return None, device
+    return (make_mesh(dp=world, device_type="cpu" if on_cpu else "cuda"),
+            device if on_cpu else str(rank_device()))
+
+
+def _mesh_kw(mesh) -> dict:
+    """``build``'s mesh argument, passed only when there is a mesh (a
+    single process calls ``build`` as before)."""
+    return {} if mesh is None else {"mesh": mesh}
+
+
+def build(cfg, log_dir: str | None = None, device: str | None = None, mesh=None):
     from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.models import (
@@ -191,13 +226,10 @@ def build(cfg, log_dir: str | None = None, device: str | None = None):
         eval_batch_size=int(cfg.Data.test_dataloader.batch_size or 1),
         tile_level=tiles,
     )
-    # JAX shards the batch over gcd(batch, devices) devices; the port trains
-    # on one card (data parallelism is ROADMAP A10)
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if math.gcd(batch_size, cards) > 1:
-        print(f"[cli] training on {dev} alone of {cards} cards (multi-GPU is ROADMAP A10)")
+    # data parallelism: one process a card under torchrun (main joins the
+    # group), the batch split over the world
     trainer = Trainer(model, tx, dm, n_classes=n_classes, loss_fn=loss_fn, config=tcfg,
-                      model_name=model_name)
+                      model_name=model_name, mesh=mesh)
     if images and cfg.Model.backbone_weights:
         # pretrained frozen-backbone weights (ref model_interface.py:237-267)
         trainer.set_backbone_variables(
@@ -222,7 +254,8 @@ def main(argv: list[str] | None = None) -> dict:
     if args.bag_size:
         cfg.Data.bag_size = args.bag_size
 
-    trainer = build(cfg, log_dir=args.log_dir, device=args.device)
+    mesh, args.device = _join(int(cfg.Data.train_dataloader.batch_size or 1), args.device)
+    trainer = build(cfg, log_dir=args.log_dir, device=args.device, **_mesh_kw(mesh))
     if not args.profile:
         return _dispatch(args, cfg, trainer)
     from torch.profiler import ProfilerActivity, profile
@@ -243,7 +276,7 @@ def _dispatch(args, cfg, trainer) -> dict:
         from transmil_deepgraft_tpu_torch.train.kfold import KFoldPreempted, run_kfold
 
         def build_for_fold(fold_dm, log_dir):
-            t = build(cfg, log_dir=log_dir, device=args.device)
+            t = build(cfg, log_dir=log_dir, device=args.device, **_mesh_kw(trainer.mesh))
             t.dm = fold_dm
             return t
 

@@ -73,7 +73,11 @@
 //   (b*h, row tile) to finish (a __threadfence, then an atomicAdd on the
 //   tile's counter) merges the splits in split order, so the result does not
 //   depend on which block is last, and resets the counter to 0 for the next
-//   launch. The split length (the wrappers' landmark_plan) is the fewest key
+//   launch. With a non-null `stats` the block that normalises a row also
+//   writes its log-sum-exp, m + log(l) in the natural base (the kernel's
+//   exponent is expf), for a caller that merges landmark attention over keys
+//   held elsewhere (sequence parallelism); a null pointer changes nothing
+//   else. The split length (the wrappers' landmark_plan) is the fewest key
 //   tiles that still give about two blocks an SM: at b 2, n = 1,280,
 //   4 x 4 x 16 = 256 blocks of 320 keys; at b 1, n = 41,472,
 //   4 x 8 x 8 = 256 blocks of 5,184 keys. The query kernel's grid is 132
@@ -317,8 +321,9 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb, c
 // tiles, then either the output (one split) or the last-block merge.
 __global__ void __launch_bounds__(LM_THREADS, LM_MIN_BLOCKS) landmark_attn_kernel(
     const float* __restrict__ q_lm, const float* __restrict__ k, const float* __restrict__ v,
-    long long sb, long long sh, long long sn, float* __restrict__ out, float* __restrict__ part,
-    int* __restrict__ counters, int heads, int n, int tiles_per_split) {
+    long long sb, long long sh, long long sn, float* __restrict__ out, float* __restrict__ stats,
+    float* __restrict__ part, int* __restrict__ counters, int heads, int n,
+    int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];  // [2 stages][K (KT x LDX), V (KT x LDY)]
   __shared__ int is_last;
   const int rt = blockIdx.x, split_idx = blockIdx.y, splits = gridDim.y;
@@ -358,6 +363,11 @@ __global__ void __launch_bounds__(LM_THREADS, LM_MIN_BLOCKS) landmark_attn_kerne
   if (splits == 1) {
     float* ob = out + ((size_t)bh * LM + row0) * DHEAD;
     store_rows(ob + g * DHEAD, ob + (g + 8) * DHEAD, o, 1.f / l[0], 1.f / l[1], t);
+    if (stats && t == 0) {
+      float* st = stats + (size_t)bh * LM + row0;
+      st[g] = m[0] + logf(l[0]);
+      st[g + 8] = m[1] + logf(l[1]);
+    }
     return;
   }
 
@@ -403,6 +413,7 @@ __global__ void __launch_bounds__(LM_THREADS, LM_MIN_BLOCKS) landmark_attn_kerne
     const float inv = 1.f / sum;
     *reinterpret_cast<float4*>(out + ((size_t)bh * LM + rt * LM_ROWS + r) * DHEAD + c4) =
         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    if (stats && c4 == 0) stats[(size_t)bh * LM + rt * LM_ROWS + r] = big + logf(sum);
   }
 }
 
@@ -523,14 +534,16 @@ void nystrom_tiling(int* out) {
 }
 
 // q_lm (batch, heads, 256, 64) contiguous; k and v read as
-// base + b*sb + h*sh + key*sn + c for key < n -> out (batch, heads, 256, 64).
+// base + b*sb + h*sh + key*sn + c for key < n -> out (batch, heads, 256, 64),
+// and, when stats is not null, each row's log-sum-exp -> stats (batch, heads,
+// 256).
 // Key tiles of 64 go to `splits` splits of tiles_per_split (the last one
 // shorter, none empty). With splits > 1: part (part_floats floats) holds
 // batch*heads*4*splits partials of 4,224 floats, counters (counter_words
 // ints) batch*heads*4 ints, zero on entry and on exit. A plan that misses a
 // key tile or a scratch too small for it returns cudaErrorInvalidValue.
 int nystrom_landmark_attn(const float* q_lm, const float* k, const float* v, long long sb,
-                          long long sh, long long sn, float* out, float* part,
+                          long long sh, long long sn, float* out, float* stats, float* part,
                           long long part_floats, int* counters, int counter_words, int batch,
                           int heads, int n, int tiles_per_split, int splits, void* stream) {
   const long long tiles = (n + KT - 1) / KT, row_tiles = (long long)batch * heads * LM_TILES;
@@ -544,7 +557,7 @@ int nystrom_landmark_attn(const float* q_lm, const float* k, const float* v, lon
   if (err != cudaSuccess) return err;
   landmark_attn_kernel<<<dim3(LM_TILES, splits, batch * heads), LM_THREADS, LM_SMEM,
                          static_cast<cudaStream_t>(stream)>>>(
-      q_lm, k, v, sb, sh, sn, out, part, counters, heads, n, tiles_per_split);
+      q_lm, k, v, sb, sh, sn, out, stats, part, counters, heads, n, tiles_per_split);
   return cudaGetLastError();
 }
 

@@ -212,7 +212,14 @@ class MILDataModule:
             self._datasets[mode] = self._make_dataset(mode)
         return self._datasets[mode]
 
-    def train_batches(self, epoch: int) -> Iterator[Batch]:
+    def train_batches(self, epoch: int, shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """The epoch's train batches. With ``shard=(index, parts)`` (data
+        parallelism) each batch is this process's contiguous 1/parts slice of
+        the global batch: every process walks the one seeded order and the
+        draws of every item, loading only its own bags (a dataset's
+        ``replay_item`` advances the draws of the others' from their tile
+        counts; without one the item is loaded and dropped), so its slice
+        is byte for byte the slice of the one-process batch."""
         ds = self.dataset("train")
         rng = np.random.default_rng((self.seed, epoch))
         if self.use_imbalanced_sampler:
@@ -221,10 +228,11 @@ class MILDataModule:
             order = rng.permutation(len(ds))
         bs = self.batch_size
         if self._bagstore is not None:
-            yield from self._bagstore_batches(order, rng)
+            lo, hi = _slice_bounds(bs, shard)
+            for batch in self._bagstore_batches(order, rng):
+                yield _slice_batch(batch, lo, hi) if shard else batch
             return
-        for start in range(0, len(order) - bs + 1, bs):
-            items = [ds.get_item(int(i), rng) for i in order[start:start + bs]]
+        for items in train_slices(ds, order, bs, rng, shard):
             # train bags are already fixed-size
             yield collate(items, eval_pad="exact", pad_value=getattr(ds, "pad_value", 0.0))
 
@@ -246,18 +254,76 @@ class MILDataModule:
                         patients=[patients[i] for i in idxs],
                         coords=[np.zeros((0, 2), np.int32)] * bs)
 
-    def eval_batches(self, mode: str, batch_size: int = 1) -> Iterator[Batch]:
+    def eval_batches(self, mode: str, batch_size: int = 1,
+                     shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """The stage's eval batches in bag order. With ``shard=(index,
+        parts)`` only this process's contiguous run of whole batches
+        (``[nb*index//parts, nb*(index+1)//parts)`` of the nb), each as the
+        one-process run makes it: a dataset that draws in eval (Camelyon's
+        ``shuffle``) still draws for the others' items, loaded and dropped."""
         ds = self.dataset(mode)
         rng = np.random.default_rng(0)
         order = np.arange(len(ds))
         if mode == "val" and self.resample_val:
             order = ImbalancedSampler(ds.get_labels(), self.n_classes).sample_epoch(rng)
-        for start in range(0, len(order), batch_size):
-            items = [ds.get_item(int(i), rng) for i in order[start:start + batch_size]]
+        skip = ds.get_item if getattr(ds, "shuffle", False) else None
+        for items in eval_runs(ds, order, batch_size, rng, shard, skip):
             yield collate(items, eval_pad=self.eval_pad, pad_value=getattr(ds, "pad_value", 0.0))
 
     def steps_per_epoch(self) -> int:
         return len(self.dataset("train")) // self.batch_size
+
+
+def _slice_bounds(batch_size: int, shard: tuple[int, int] | None) -> tuple[int, int]:
+    index, parts = shard or (0, 1)
+    if batch_size % parts:
+        raise ValueError(f"a batch of {batch_size} does not split over {parts} processes")
+    return index * batch_size // parts, (index + 1) * batch_size // parts
+
+
+def train_slices(ds, order, batch_size: int, rng: np.random.Generator,
+                 shard: tuple[int, int] | None) -> Iterator[list]:
+    """The items of each full global batch of ``order`` (this process's
+    contiguous slice of it under ``shard=(index, parts)``), drawn from
+    ``rng`` in order: an item of another slice advances the draws with the
+    dataset's ``replay_item`` when it has one, else is loaded and dropped."""
+    lo, hi = _slice_bounds(batch_size, shard)
+    skip = getattr(ds, "replay_item", None) or ds.get_item
+    for start in range(0, len(order) - batch_size + 1, batch_size):
+        items = []
+        for j, i in enumerate(order[start:start + batch_size]):
+            if lo <= j < hi:
+                items.append(ds.get_item(int(i), rng))
+            else:
+                skip(int(i), rng)
+        yield items
+
+
+def eval_runs(ds, order, batch_size: int, rng: np.random.Generator,
+              shard: tuple[int, int] | None, skip=None) -> Iterator[list]:
+    """The items of each batch of ``order`` (all of it, the last short):
+    under ``shard=(index, parts)`` only this process's contiguous run of
+    whole batches, ``[nb*index//parts, nb*(index+1)//parts)`` of the nb;
+    ``skip(i, rng)``, when given, advances the draws of the others' items."""
+    starts = range(0, len(order), batch_size)
+    index, parts = shard or (0, 1)
+    mine = range(len(starts) * index // parts, len(starts) * (index + 1) // parts)
+    for b, start in enumerate(starts):
+        ids = order[start:start + batch_size]
+        if b in mine:
+            yield [ds.get_item(int(i), rng) for i in ids]
+        elif skip is not None:
+            for i in ids:
+                skip(int(i), rng)
+
+
+def _slice_batch(batch: Batch, lo: int, hi: int) -> Batch:
+    """Items ``[lo, hi)`` of a batch."""
+    return Batch(bags=batch.bags[lo:hi], labels=batch.labels[lo:hi],
+                 lengths=batch.lengths[lo:hi], names=batch.names[lo:hi],
+                 patients=batch.patients[lo:hi], coords=batch.coords[lo:hi],
+                 padded_coords=None if batch.padded_coords is None
+                 else batch.padded_coords[lo:hi])
 
 
 class _TrainViewSynthetic:

@@ -242,5 +242,34 @@ class FeatureBagDataset:
         draw = np.random.RandomState(0).choice(n, math.ceil(n * self.eval_draw_fraction))
         return feats[draw], label, (name, coords[draw], patient)
 
+    def _length(self, index: int) -> int:
+        """The tile count of bag ``index``: from the header of a ``.npy``
+        file, else from one load; kept for later epochs."""
+        lengths = self.__dict__.setdefault("_lengths", {})
+        if index not in lengths:
+            path = Path(self.files[index])
+            if path.suffix.lower() == ".npy":
+                lengths[index] = int(np.load(path, mmap_mode="r").shape[0])
+            else:
+                lengths[index] = int(self._load(index)[0].shape[0])
+        return lengths[index]
+
+    def replay_item(self, index: int, rng: np.random.Generator) -> None:
+        """Advance ``rng`` as the train :meth:`get_item` of ``index`` would,
+        from the bag's tile count alone (its draws depend on nothing else):
+        a data-parallel process skips the bags of the others' shards this
+        way and draws its own as the one-process run does."""
+        n = self._length(index)
+        k = self.max_bag_size
+        kept = min(n, k)
+        rng.permutation(n)  # the subsample
+        if self.mixup:  # the draws of _mixup_bag on the kept tiles
+            rng.random(kept, dtype=np.float32)
+            rng.integers(0, kept, kept)
+            rng.integers(0, kept, kept)
+            if kept < k:
+                rng.permutation(kept)
+        rng.permutation(k)  # the shuffle of the padded bag
+
     def __getitem__(self, index: int):
         return self.get_item(index, np.random.default_rng())

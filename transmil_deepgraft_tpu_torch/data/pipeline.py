@@ -95,11 +95,19 @@ def to_device(arrays: Sequence[np.ndarray | None], device: torch.device,
 
 def device_prefetch(batches: Iterable[Any], device: torch.device,
                     arrays: Callable[[Any], Sequence[np.ndarray | None]],
-                    size: int = 2) -> Iterator[tuple]:
+                    size: int = 2, mesh=None) -> Iterator[tuple]:
     """Prefetch ``batches`` on a thread that also copies ``arrays(batch)`` to
     ``device``; yields ``(batch, *tensors)``. On a CUDA device the copies run
     on a side stream from pinned memory, and the current stream waits for
-    them before the batch is yielded."""
+    them before the batch is yielded. With a ``mesh`` (``parallel.mesh``)
+    each array is first cut to this process's contiguous 1/dp slice of its
+    batch dim, as JAX's ``shard_batch`` places it."""
+    if mesh is not None:
+        from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, axis_size, shard_rows
+
+        whole, parts, index = arrays, axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+        arrays = lambda b: tuple(None if a is None else shard_rows(a, parts, index)  # noqa: E731
+                                 for a in whole(b))
     if device.type != "cuda":
         return prefetch(batches, size, lambda b: (b, *to_device(arrays(b), device)))
     stream = torch.cuda.Stream(device)

@@ -15,7 +15,13 @@ Tiles come as arrays (``predict_slide*``) or as image files streamed from
 disk (``predict_slide_paths*``): the next chunk decodes on a host thread
 while this one embeds on the device.
 
-Left for a later slice: the multi-device ``mesh``.
+With a ``mesh`` (``parallel.mesh.make_mesh``, one process a card) the embed
+is tile-parallel (``parallel/tile_parallel``): each chunk holds ``chunk``
+tiles per process, every process embeds its contiguous shard (on the card
+through the int8 stage kernels, as ``apply_qresnet50`` runs them) and the
+features are all-gathered before the head, which then runs on every process
+(each returns the same probabilities, with no further collective). From disk
+each process decodes only its shard of each chunk.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD, _load_tile
 from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models import head_logits
+from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, axis_size
 
 
 def decode_tile_paths(paths, size: int = 224, scaled_dct: bool = True) -> np.ndarray:
@@ -48,6 +55,26 @@ def decode_tile_paths(paths, size: int = 224, scaled_dct: bool = True) -> np.nda
         if n_ok == len(paths):
             return batch
     return np.stack([_load_tile(p, size) for p in paths])
+
+
+def _broadcast_tensors(obj, group):
+    """A NamedTuple of tensors (nested, None leaves kept) with every tensor
+    replaced by the group's first process's value, broadcast in place."""
+    import torch.distributed as dist
+
+    src = dist.get_global_rank(group, 0)
+
+    def walk(x):
+        if torch.is_tensor(x):
+            x = x.contiguous()
+            dist.broadcast(x, src=src, group=group)
+            return x
+        if isinstance(x, tuple):
+            vals = [walk(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x
+
+    return walk(obj)
 
 
 def _pad_chunk(batch: np.ndarray, chunk: int) -> np.ndarray:
@@ -99,6 +126,11 @@ class SlideInferencePipeline:
         With ``fused_backbone=False`` the int8 stages run the kernels too, as
         ``apply_qresnet50`` does on the card.
       device: None means CUDA; pass "cpu" to run the plain versions.
+      mesh / mesh_axis: a ``DeviceMesh`` makes the embed tile-parallel over
+        its ``mesh_axis`` dim: ``chunk`` tiles per process a chunk, so
+        ``self.chunk`` is ``chunk`` times the dim's size; features are
+        gathered before the head. Every process of the mesh makes the same
+        calls. ``fused_backbone=True`` with a mesh raises, as in JAX.
     """
 
     def __init__(
@@ -112,11 +144,17 @@ class SlideInferencePipeline:
         fused_backbone: bool = False,
         fused_t_cfg: tuple = (1, 2, 4, 4, 4, 4, 4),
         device: str | torch.device | None = None,
+        mesh=None,
+        mesh_axis: str = "dp",
     ) -> None:
         self.coord_aware = bool(getattr(head_model, "coord_aware", False))
         self.device = resolve_device(device)
         self.head = head_model.to(self.device).eval()
-        self.chunk = chunk
+        self.mesh = mesh
+        self._shards, self._shard = axis_size(mesh, mesh_axis), axis_rank(mesh, mesh_axis)
+        self._group = mesh.get_group(mesh_axis) if mesh is not None else None
+        self.rank_chunk = chunk
+        self.chunk = chunk * self._shards
         if calib_tiles is not None:
             from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
                 apply_qresnet50,
@@ -127,6 +165,14 @@ class SlideInferencePipeline:
 
             self._q = build_qresnet50(backbone_variables, calib_tiles,
                                       truncate_after=truncate_after, device=self.device)
+            if fused_backbone and mesh is not None:
+                raise ValueError(
+                    "fused_backbone (experimental Pallas kernels) does not "
+                    "compose with tile-parallel mesh embedding; the XLA int8 "
+                    "path is the production multi-chip path"
+                )
+            if mesh is not None:  # every process embeds with rank 0's constants
+                self._q = _broadcast_tensors(self._q, self._group)
             if fused_backbone:
                 for t in fused_t_cfg:
                     if t and chunk % t:  # 0 = the plain loop for that segment
@@ -147,7 +193,20 @@ class SlideInferencePipeline:
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
     def _embed_chunk(self, batch: np.ndarray) -> torch.Tensor:
+        """One chunk of ``self.chunk`` tiles -> its (chunk, D) features; with
+        a mesh this process embeds its shard and the shards are gathered."""
+        if self.mesh is None:
+            return embed_chunk(self._embed_core, batch, self._mean, self._std)
+        c, r = self.rank_chunk, self._shard
+        return self._gather(self._embed_shard(batch[r * c:(r + 1) * c]))
+
+    def _embed_shard(self, batch: np.ndarray) -> torch.Tensor:
         return embed_chunk(self._embed_core, batch, self._mean, self._std)
+
+    def _gather(self, feats: torch.Tensor) -> torch.Tensor:
+        from transmil_deepgraft_tpu_torch.parallel.tile_parallel import gather_rows
+
+        return gather_rows(feats, self._group)
 
     def embed(self, tiles: np.ndarray) -> np.ndarray:
         """Chunked tile embedding -> (N, D) float32 features on the host.
@@ -168,14 +227,27 @@ class SlideInferencePipeline:
         if n == 0:
             raise ValueError("empty tile path list")
         chunks = [paths[i:i + self.chunk] for i in range(0, n, self.chunk)]
+        if self.mesh is not None:  # this process's shard of each chunk
+            c, r = self.rank_chunk, self._shard
+            chunks = [ch[r * c:(r + 1) * c] for ch in chunks]
+
+        def decode(ch):
+            if not len(ch):  # a short last chunk leaves this shard empty
+                return np.zeros((0, tile_size, tile_size, 3), np.uint8)
+            return decode_tile_paths(ch, tile_size)
+
         outs = []
         with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(decode_tile_paths, chunks[0], tile_size)
+            fut = pool.submit(decode, chunks[0])
             for ci in range(len(chunks)):
                 batch = fut.result()
                 if ci + 1 < len(chunks):  # decode the next chunk during this embed
-                    fut = pool.submit(decode_tile_paths, chunks[ci + 1], tile_size)
-                outs.append(self._embed_chunk(_pad_chunk(batch, self.chunk)))
+                    fut = pool.submit(decode, chunks[ci + 1])
+                if self.mesh is None:
+                    outs.append(self._embed_chunk(_pad_chunk(batch, self.chunk)))
+                else:
+                    outs.append(self._gather(self._embed_shard(_pad_chunk(batch,
+                                                                          self.rank_chunk))))
         return torch.cat(outs, dim=0)[:n] if len(outs) > 1 else outs[0][:n]
 
     def predict_slide_paths(self, paths, coords: Optional[np.ndarray] = None, *,

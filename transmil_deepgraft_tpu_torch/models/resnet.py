@@ -26,9 +26,11 @@ it as the float yardstick.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -37,6 +39,24 @@ BN_EPS = 1e-5
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
+
+
+# the process group train-mode BatchNorm reduces its batch moments over, or None
+_BATCH_STATS_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def batch_stats_reduced_over(group):
+    """Inside, every train-mode :class:`BatchNorm2d` normalises with the
+    moments of the whole data-parallel batch: sum x and sum x^2 are
+    ``all_reduce``d over ``group`` (differentiably), so dp training equals
+    one-process training. None leaves them per process."""
+    prev = _BATCH_STATS_GROUP[0]
+    _BATCH_STATS_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _BATCH_STATS_GROUP[0] = prev
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -56,8 +76,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        group = _BATCH_STATS_GROUP[0]
+        if group is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        else:  # the global batch's moments: sum x and sum x^2 over the group
+            from torch.distributed.nn.functional import all_reduce
+
+            count = x.numel() // x.shape[1] * dist.get_world_size(group)
+            sums = all_reduce(torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+                              group=group)
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():

@@ -30,6 +30,18 @@ Calibration (``_calibrate``) runs in float64 where JAX runs float32 (its stem
 in bf16), so the calibrated scales agree with JAX's to rounding, not to the
 bit; ``utils/jax_params.qresnet_from_jax`` carries JAX's constants across
 when bit-exact codes are wanted.
+
+The JAX package's TPU layout variants are here too:
+``apply_qresnet50_wpack1`` runs stage 1 on the W-pair-packed grid
+(``ops/qstage_kernel.fused_stage_wpacked``: the stage kernel with
+``pack_wpair_block`` weights on the card; bit-exact), and
+``apply_stage_wpacked_xla`` is that stage's plain version;
+``apply_qresnet50_bf16s1`` runs the stem and stage 1 as bf16 convolutions
+summed in float32 (``build_bf16_stage1``) and quantizes once into stage 2's
+input code. They were TPU layout devices (the packed grid fills its 128-lane
+tiles at C = 64; bf16 beat int8 at C = 64 on its matrix unit); on the card
+they compute the same features by other routes and are not expected to be
+faster.
 """
 
 from __future__ import annotations
@@ -382,10 +394,7 @@ def _pool(q: QResNet50, out_q: torch.Tensor) -> torch.Tensor:
 
 
 def _forward(q: QResNet50, tiles: torch.Tensor, t_cfg: tuple) -> torch.Tensor:
-    from transmil_deepgraft_tpu_torch.ops.qstage_kernel import (
-        fused_bottleneck_stage,
-        fused_entry_block,
-    )
+    from transmil_deepgraft_tpu_torch.ops.qstage_kernel import fused_bottleneck_stage
 
     out = _stem_q(q, tiles)
     t1, *rest = t_cfg
@@ -394,6 +403,18 @@ def _forward(q: QResNet50, tiles: torch.Tensor, t_cfg: tuple) -> torch.Tensor:
         out = fused_bottleneck_stage(out, q.blocks[lo:hi], tiles_per_step=t1)
     else:
         out = _plain_blocks(out, q.blocks[lo:hi], [1] * (hi - lo))
+    return _pool(q, _later_stages(q, out, tuple(rest)))
+
+
+def _later_stages(q: QResNet50, out: torch.Tensor, rest: tuple = (1,) * 6) -> torch.Tensor:
+    """Stages 2.. on stage 1's output codes: each stage's entry kernel, then
+    its stage kernel (``rest`` = tiles-per-step for (e2, i2, e3, i3, e4,
+    i4); a 0 takes that segment's plain block loop)."""
+    from transmil_deepgraft_tpu_torch.ops.qstage_kernel import (
+        fused_bottleneck_stage,
+        fused_entry_block,
+    )
+
     for stage in range(1, q.truncate_after):
         lo, hi = _STAGE_SLICES[stage]
         te, ti = rest[2 * stage - 2], rest[2 * stage - 1]
@@ -405,7 +426,7 @@ def _forward(q: QResNet50, tiles: torch.Tensor, t_cfg: tuple) -> torch.Tensor:
             out = fused_bottleneck_stage(out, q.blocks[lo + 1:hi], tiles_per_step=ti)
         else:
             out = _plain_blocks(out, q.blocks[lo + 1:hi], [1] * (hi - lo - 1))
-    return _pool(q, out)
+    return out
 
 
 def apply_qresnet50(q: QResNet50, tiles: torch.Tensor) -> torch.Tensor:
@@ -423,3 +444,105 @@ def apply_qresnet50_fused(
     must divide the batch (on the card it is only that check). A ``0`` entry
     sends that segment through the plain block loop instead of its kernel."""
     return _forward(prep.q, tiles, t_cfg)
+
+
+# ------------------------------------------------------ TPU layout variants
+
+def apply_stage_wpacked_xla(x_q: torch.Tensor, packed_blocks) -> torch.Tensor:
+    """A stride-1 stage on the W-pair-packed grid, plain: the (N, H, W, C)
+    codes viewed as (N, H, W/2, 2C) (a free reshape) through the quantized
+    block loop with ``pack_wpair_block`` weights, then viewed back. The same
+    integer arithmetic as the unpacked loop, so bit-exact to it."""
+    n, hh, ww, cin = x_q.shape
+    out = _plain_blocks(x_q.reshape(n, hh, ww // 2, 2 * cin), packed_blocks,
+                        [1] * len(packed_blocks))
+    return out.reshape(n, hh, ww, out.shape[-1] // 2)
+
+
+def apply_qresnet50_wpack1(prep: QResNet50Fused, tiles: torch.Tensor) -> torch.Tensor:
+    """``apply_qresnet50`` with stage 1 on the W-pair-packed grid
+    (``ops/qstage_kernel.fused_stage_wpacked``: one stage-kernel launch with
+    the packed blocks on the card, :func:`apply_stage_wpacked_xla`'s plain
+    loop on the CPU); stages 2-4 as ``apply_qresnet50`` runs them.
+    Bit-exact to it."""
+    from transmil_deepgraft_tpu_torch.ops.qstage_kernel import fused_stage_wpacked
+
+    q = prep.q
+    out = fused_stage_wpacked(_stem_q(q, tiles), q.blocks[0:3], packed_blocks=prep.stage1_packed)
+    return _pool(q, _later_stages(q, out))
+
+
+class BF16Stage1(NamedTuple):
+    """The folded stem and stage 1 for the mixed-precision variant: bf16
+    kernels (OIHW), float32 biases, and stage 2's input scale from the same
+    calibration as ``build_qresnet50`` (so stages 2-4 see the same codes'
+    meaning)."""
+
+    stem_k: torch.Tensor  # bf16 (64, 3, 7, 7) BN-folded stem kernel
+    stem_b: torch.Tensor  # (64,) f32
+    convs: tuple  # per stage-1 block: (k1, b1, k2, b2, k3, b3[, kd, bd])
+    out_scale: torch.Tensor  # () f32: the scale of layer2_0.conv1's input
+
+    def to(self, device) -> "BF16Stage1":
+        return BF16Stage1(self.stem_k.to(device), self.stem_b.to(device),
+                          tuple(tuple(t.to(device) for t in c) for c in self.convs),
+                          self.out_scale.to(device))
+
+
+def build_bf16_stage1(variables: dict, calib_tiles: np.ndarray,
+                      device: str | torch.device | None = None) -> BF16Stage1:
+    """Companion to ``build_qresnet50`` (the same calibration tiles give the
+    same stage-2 input scale), on ``device`` (None = CUDA)."""
+    dev = resolve_device(device)
+    folded = _fold_all(variables, 4)
+    record = _calibrate(folded, calib_tiles, 4, dev)
+    s_out = max(record["layer2_0.conv1"], 1e-12) / 255.0
+
+    def kb(key):
+        k, b = folded[key]
+        return (_oihw(k, torch.device("cpu")).float().to(torch.bfloat16), _f32(b))
+
+    convs = []
+    for i in range(3):
+        parts = []
+        for conv in ("conv1", "conv2", "conv3", "downsample"):
+            if f"layer1_{i}.{conv}" in folded:
+                parts += kb(f"layer1_{i}.{conv}")
+        convs.append(tuple(parts))
+    stem_k, stem_b = kb("conv1")
+    return BF16Stage1(stem_k, stem_b, tuple(convs), _f32(s_out)).to(dev)
+
+
+def _conv_bf16(x: torch.Tensor, k: torch.Tensor, stride: int = 1, padding: int = 0):
+    """A convolution of bf16-rounded NCHW input and bf16 kernel, summed in
+    float32 (XLA's ``preferred_element_type=float32``). The bf16 values run
+    through a float32 convolution: every product is exact, and on the card
+    TF32 (allowed here) holds bf16 values exactly, so cuDNN may take its
+    tensor-core route without changing a bit."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        return F.conv2d(x.to(torch.bfloat16).float(), k.float(), stride=stride, padding=padding)
+
+
+def _bf16_stage1_codes(s1: BF16Stage1, tiles: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) float tiles -> stage 2's (N, H/4, W/4, 256) int8 input
+    codes: the bf16 stem + max-pool + stage 1, then one quantization (zero
+    point -128)."""
+    x = tiles.permute(0, 3, 1, 2)
+    h = F.relu(_conv_bf16(x, s1.stem_k, stride=2, padding=3) + s1.stem_b.view(1, -1, 1, 1))
+    h = F.max_pool2d(F.pad(h, (1, 1, 1, 1), value=-float("inf")), 3, stride=2)
+    for parts in s1.convs:
+        k1, b1, k2, b2, k3, b3 = parts[:6]
+        y = F.relu(_conv_bf16(h, k1) + b1.view(1, -1, 1, 1))
+        y = F.relu(_conv_bf16(y, k2, padding=1) + b2.view(1, -1, 1, 1))
+        y = _conv_bf16(y, k3) + b3.view(1, -1, 1, 1)
+        idn = _conv_bf16(h, parts[6]) + parts[7].view(1, -1, 1, 1) if len(parts) == 8 else h
+        h = F.relu(y + idn)
+    out_q = torch.clamp(torch.round(h / s1.out_scale) - 128.0, -128, 127).to(torch.int8)
+    return out_q.permute(0, 2, 3, 1).contiguous()
+
+
+def apply_qresnet50_bf16s1(q: QResNet50, s1: BF16Stage1, tiles: torch.Tensor) -> torch.Tensor:
+    """Mixed-precision forward: bf16 stem and stage 1 (summed in float32),
+    one quantization into stage 2's input code, int8 stages 2-4 (the entry
+    and stage kernels on the card)."""
+    return _pool(q, _later_stages(q, _bf16_stage1_codes(s1, tiles)))

@@ -6,7 +6,9 @@ TPU kernels, each in two layouts:
   nystrom_landmark_attn (B5 ``_landmark_attn_kernel_packed``, B3
       ``_landmark_attn_kernel``): ``attn3_v = softmax(q_lm k^T) v`` with the
       m landmarks as queries over the n keys (online softmax, split over n,
-      the splits merged by the last block in the same launch).
+      the splits merged by the last block in the same launch); on request it
+      also writes each landmark row's log-sum-exp, which sequence-parallel
+      attention (``parallel/sp_nystrom``) merges across processes.
   nystrom_query_lm (B6 ``_query_lm_kernel_packed``, B4 ``_query_lm_kernel``):
       ``softmax(q k_lm^T) B`` with the n rows as queries over the m landmarks.
 
@@ -77,7 +79,7 @@ def _library() -> ctypes.CDLL:
     """The built kernels with their C signatures declared (once a process);
     raises if the library's tiling is not the one the plans here assume."""
     lib = _build.load("nystrom")
-    lib.nystrom_landmark_attn.argtypes = [_P, _P, _P, _L, _L, _L, _P, _P, _L, _P, _I,
+    lib.nystrom_landmark_attn.argtypes = [_P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _P, _I,
                                           _I, _I, _I, _I, _I, _P]
     lib.nystrom_landmark_attn.restype = _I
     lib.nystrom_query_lm.argtypes = [_P, _L, _L, _L, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P]
@@ -204,9 +206,14 @@ def _call(lib: ctypes.CDLL, name: str, dev: torch.device, *args) -> None:
 
 # ------------------------------------------------------- plain versions
 
-def landmark_attention_reference(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``softmax(q_lm k^T) v`` over (..., m, d), (..., n, d), (..., n, d)."""
-    return torch.softmax(q_lm @ k.transpose(-1, -2), dim=-1) @ v
+def landmark_attention_reference(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 return_stats: bool = False):
+    """``softmax(q_lm k^T) v`` over (..., m, d), (..., n, d), (..., n, d);
+    with ``return_stats`` also each row's log-sum-exp of the scores
+    (natural base), (..., m)."""
+    s = q_lm @ k.transpose(-1, -2)
+    out = torch.softmax(s, dim=-1) @ v
+    return (out, torch.logsumexp(s, dim=-1)) if return_stats else out
 
 
 def query_landmark_attention_reference(q: torch.Tensor, k_lm: torch.Tensor,
@@ -217,10 +224,12 @@ def query_landmark_attention_reference(q: torch.Tensor, k_lm: torch.Tensor,
 
 # ------------------------------------------------------- kernel launches
 
-def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n):
+def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n, stats=None):
     """B5/B3's kernel, uncounted: q_lm (batch, heads, m, d); k and v read from
     ``k_ptr``/``v_ptr`` at ``k_strides`` (batch, head, row), in floats ->
-    (batch, heads, m, d). The caller has checked k and v. The TransLayer
+    (batch, heads, m, d). With ``stats`` (a contiguous float32 (batch, heads,
+    m) tensor on q_lm's device) the kernel also writes each row's
+    log-sum-exp there. The caller has checked k and v. The TransLayer
     kernels (``translayer_kernel``) launch it through here and count their
     own calls."""
     dev = q_lm.device
@@ -235,14 +244,20 @@ def landmark_launch(q_lm, k_ptr, v_ptr, k_strides, batch, heads, n):
     scratch = (None, 0, None, 0)
     if splits > 1:
         scratch = _scratch(dev, stream, tiles, tiles * splits * _PARTIAL)
+    if stats is not None and (stats.device != dev or stats.dtype != torch.float32
+                              or not stats.is_contiguous()
+                              or tuple(stats.shape) != (batch, heads, KERNEL_LANDMARKS)):
+        raise ValueError(f"stats must be a contiguous float32 ({batch}, {heads}, "
+                         f"{KERNEL_LANDMARKS}) tensor on {dev}")
     _call(_library(), "nystrom_landmark_attn", dev, q_lm.data_ptr(), k_ptr, v_ptr, *k_strides,
-          out.data_ptr(), *scratch, batch, heads, n, per, splits, stream)
+          out.data_ptr(), None if stats is None else stats.data_ptr(), *scratch, batch, heads,
+          n, per, splits, stream)
     return out
 
 
-def _launch_landmark(*args):
+def _launch_landmark(*args, **kw):
     """:func:`landmark_launch`, counted as one launch of B5/B3."""
-    out = landmark_launch(*args)
+    out = landmark_launch(*args, **kw)
     LAUNCHES["nystrom_landmark_attn"] += 1
     return out
 
@@ -274,18 +289,24 @@ def _launch_query(*args):
 
 # ------------------------------------------------------- (b*h, n, d) layout
 
-def landmark_attention(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def landmark_attention(q_lm: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       return_stats: bool = False):
     """B3: ``softmax(q_lm k^T) v``; q_lm (bh, m, d), k and v (bh, n, d) ->
-    (bh, m, d) float32."""
+    (bh, m, d) float32; with ``return_stats`` also each row's log-sum-exp
+    of the scores, (bh, m), in the natural base (the kernel writes it)."""
     if _on_cpu(q_lm):
-        return landmark_attention_reference(q_lm, k, v)
+        return landmark_attention_reference(q_lm, k, v, return_stats)
     _check_rows("k", k, q_lm.device)
     _check_rows("v", v, q_lm.device)
     bh, n, _ = k.shape
     if tuple(v.shape) != tuple(k.shape) or v.stride() != k.stride():
         raise ValueError(f"k and v must share shape and strides, got {tuple(k.shape)}, {tuple(v.shape)}")
-    return _launch_landmark(q_lm[:, None], k.data_ptr(), v.data_ptr(),
-                            (k.stride(0), 0, k.stride(1)), bh, 1, n)[:, 0]
+    stats = None
+    if return_stats:
+        stats = torch.empty((bh, 1, KERNEL_LANDMARKS), dtype=torch.float32, device=q_lm.device)
+    out = _launch_landmark(q_lm[:, None], k.data_ptr(), v.data_ptr(),
+                           (k.stride(0), 0, k.stride(1)), bh, 1, n, stats=stats)[:, 0]
+    return (out, stats[:, 0]) if return_stats else out
 
 
 def query_landmark_attention(q: torch.Tensor, k_lm: torch.Tensor,

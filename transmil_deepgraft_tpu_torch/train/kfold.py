@@ -23,7 +23,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from transmil_deepgraft_tpu_torch.data.datamodule import Batch, MILDataModule, collate
+from transmil_deepgraft_tpu_torch.data.datamodule import (
+    Batch, MILDataModule, collate, eval_runs, train_slices)
 from transmil_deepgraft_tpu_torch.data.sampler import ImbalancedSampler
 from transmil_deepgraft_tpu_torch.train.aggregation import aggregate_patients
 from transmil_deepgraft_tpu_torch.train.metrics import auroc, classification_report
@@ -62,7 +63,8 @@ class FoldDataModule:
         self.batch_size = base.batch_size
         self.eval_pad = base.eval_pad
 
-    def train_batches(self, epoch: int) -> Iterator[Batch]:
+    def train_batches(self, epoch: int, shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """As ``MILDataModule.train_batches`` (``shard``: data parallelism)."""
         ds = self.base.dataset("train")
         rng = np.random.default_rng((self.base.seed, epoch))
         labels = [ds.get_labels()[i] for i in self.train_idx]
@@ -70,19 +72,20 @@ class FoldDataModule:
             order = self.train_idx[ImbalancedSampler(labels, self.n_classes).sample_epoch(rng)]
         else:
             order = rng.permutation(self.train_idx)
-        bs = self.batch_size
-        for start in range(0, len(order) - bs + 1, bs):
-            yield collate([ds.get_item(int(i), rng) for i in order[start:start + bs]],
-                          eval_pad="exact")
+        for items in train_slices(ds, order, self.batch_size, rng, shard):
+            yield collate(items, eval_pad="exact")
 
-    def eval_batches(self, mode: str, batch_size: int = 1) -> Iterator[Batch]:
+    def eval_batches(self, mode: str, batch_size: int = 1,
+                     shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """As ``MILDataModule.eval_batches``; the fold's val bags are train
+        bags, whose draws the other processes' items advance."""
         if mode != "val":
-            yield from self.base.eval_batches(mode, batch_size)
+            yield from self.base.eval_batches(mode, batch_size, shard=shard)
             return
         ds = self.base.dataset("train")
-        rng = np.random.default_rng(0)
-        for start in range(0, len(self.val_idx), batch_size):
-            items = [ds.get_item(int(i), rng) for i in self.val_idx[start:start + batch_size]]
+        skip = getattr(ds, "replay_item", None) or ds.get_item
+        for items in eval_runs(ds, self.val_idx, batch_size, np.random.default_rng(0), shard,
+                               skip):
             yield collate(items, eval_pad=self.eval_pad)
 
     def steps_per_epoch(self) -> int:

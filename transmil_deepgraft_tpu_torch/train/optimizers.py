@@ -151,7 +151,12 @@ def _projection(p: torch.Tensor, g: torch.Tensor, perturb: torch.Tensor, delta: 
 class Optimizer:
     """One optimizer of :func:`create_optimizer`: ``init(params)`` once,
     then ``step()`` after each micro-step's backward (it reads ``p.grad``;
-    None is a zero gradient, on which weight decay still acts)."""
+    None is a zero gradient, on which weight decay still acts).
+    ``grad_reduce``, when set, takes the accumulated gradients in place at
+    each optimizer step before the rule (the Trainer averages them over
+    data-parallel processes there)."""
+
+    grad_reduce = None
 
     def __init__(self, rule: str, lr: float, weight_decay: float, betas: tuple[float, float],
                  eps: float, momentum: float, lookahead: bool, grad_accum_steps: int,
@@ -256,6 +261,8 @@ class Optimizer:
             return False
         self.mini_step = 0
         self.count += 1
+        if self.grad_reduce is not None:  # data parallelism: the global batch's mean
+            self.grad_reduce(self.acc)
         updates = [u * self.lr_scale for u in self._rule_updates(self.acc, hessian)]
         if self.lookahead:
             self._apply_lookahead(updates)

@@ -69,14 +69,32 @@ As the JAX Trainer (and the reference's Lightning ``ModelInterface``):
   refused when the Trainer is built (ROADMAP C18);
 - ``metrics.jsonl`` / ``metrics.csv`` rows with the JAX Trainer's keys, and
   with ``use_tensorboard`` the same scalars through tensorboardX under
-  ``tb/``.
+  ``tb/``;
+- data parallelism (``mesh=``, a ``parallel.mesh.make_mesh`` mesh, one
+  process a card): each process takes its contiguous 1/dp slice of every
+  global batch (``MILDataModule.train_batches(shard=)``) and its loss is the
+  mean over its slice; at each optimizer step the accumulated gradients are
+  averaged over dp in one ``all_reduce`` of a flattened buffer (the
+  optimizer's ``grad_reduce``; both tiers of DTFD's, and AdaHessian's
+  Hessian diagonal too), so the update is the global batch's, as JAX's dp
+  mesh computes it. During the train step the Newton-Schulz divisor
+  (``ops/pinv.divisor_reduced_over``) and the flax-rule BatchNorm's batch
+  statistics (``models/resnet.batch_stats_reduced_over``) are reduced over
+  dp, so dp training equals one-process training. Eval takes whole batches
+  a process and gathers logits, names and attention rows in bag order, so
+  every process takes the same early-stop, plateau, SWA and checkpoint
+  decisions; the SIGTERM flag is reduced (MAX) each step, so every process
+  stops at the same step. Only rank 0 writes checkpoints, metrics,
+  TensorBoard, figures, top-k tiles, thresholds and autosaves; a resume
+  reads ``last.ckpt`` on every rank. Dropout masks are drawn per process
+  (``seed + 1``, the epoch and the rank), where JAX's GSPMD draws one global
+  mask (ROADMAP C22).
 
 Checkpoints are ``torch.save`` files; :meth:`Trainer.load_checkpoint` and
 :meth:`Trainer.load_train_state` also read the flax-msgpack ``.ckpt`` files
 of the JAX Trainer.
 
-Not ported: ``ckpt_backend='orbax'`` (refused: neither machine has orbax)
-and meshes (ROADMAP A10).
+Not ported: ``ckpt_backend='orbax'`` (refused: neither machine has orbax).
 """
 
 from __future__ import annotations
@@ -89,10 +107,12 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from transmil_deepgraft_tpu_torch.data.datamodule import MILDataModule
@@ -102,6 +122,9 @@ from transmil_deepgraft_tpu_torch.models.backbones import ImageMILModel, load_ba
 from transmil_deepgraft_tpu_torch.models.classic import ClassicTileClassifier
 from transmil_deepgraft_tpu_torch.models.dtfd import PseudoBagShuffle
 from transmil_deepgraft_tpu_torch.models.layers import Dropout
+from transmil_deepgraft_tpu_torch.models.resnet import batch_stats_reduced_over
+from transmil_deepgraft_tpu_torch.ops.pinv import divisor_reduced_over
+from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, axis_size
 from transmil_deepgraft_tpu_torch.train.adahessian import (
     refuse_custom_vjp_heads, value_grad_and_diag_hessian)
 from transmil_deepgraft_tpu_torch.train.aggregation import (
@@ -180,6 +203,26 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
+def _mean_over(tensors: list[torch.Tensor], group) -> None:
+    """Average ``tensors`` in place over ``group``: one ``all_reduce`` of
+    one flattened buffer a dtype."""
+    size = dist.get_world_size(group)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=group)
+        flat /= size
+        for t, chunk in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(chunk.view_as(t))
+
+
+class _NoLog:
+    """The metric logger of a process other than rank 0: writes nothing."""
+
+    def log(self, step: int, metrics: dict) -> None:
+        pass
+
+
 def _write_csv(path: Path, columns: dict[str, list], index: bool) -> None:
     """Columns -> CSV, with a leading unnamed 0..n-1 index column when
     ``index`` (pandas' ``to_csv`` layout, which the JAX Trainer writes)."""
@@ -195,7 +238,7 @@ def _write_csv(path: Path, columns: dict[str, list], index: bool) -> None:
 class Trainer:
     def __init__(self, model: torch.nn.Module, tx: Optimizer, datamodule: MILDataModule, *,
                  n_classes: int, loss_fn: LossFn, config: TrainerConfig,
-                 model_name: str = "TransMIL") -> None:
+                 model_name: str = "TransMIL", mesh=None) -> None:
         _refuse_unported(config)
         if model_name == "MDMIL":
             raise NotImplementedError(
@@ -213,6 +256,19 @@ class Trainer:
         # forward argument
         self.coord_aware = bool(getattr(model, "coord_aware", False))
         self.device = next(model.parameters()).device
+        # data parallelism over the mesh's dp dim (one process a card)
+        self.mesh = mesh
+        self.dp, self.dp_rank = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+        self.dp_group = mesh.get_group("dp") if self.dp > 1 else None
+        self.rank = dist.get_rank() if mesh is not None else 0
+        self.world = dist.get_world_size() if mesh is not None else 1
+        self.is_main = self.rank == 0
+        if self.dp > 1:
+            if datamodule.batch_size % self.dp:
+                raise ValueError(f"batch {datamodule.batch_size} does not split over dp="
+                                 f"{self.dp} processes")
+            for opt in getattr(tx, "tiers", (tx,)):
+                opt.grad_reduce = lambda ts: _mean_over(ts, self.dp_group)
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         self.shuffle_generator = torch.Generator(device=self.device).manual_seed(config.seed + 2)
         # AdaHessian takes the Hessian diagonal, with Rademacher probes (JAX
@@ -229,7 +285,8 @@ class Trainer:
 
         self.log_dir = Path(config.log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.logger = MetricLogger(self.log_dir, use_tensorboard=config.use_tensorboard)
+        self.logger = (MetricLogger(self.log_dir, use_tensorboard=config.use_tensorboard)
+                       if self.is_main else _NoLog())
         self.ckpts = CheckpointManager(self.log_dir / "checkpoints")
         self._resume_fit_state: Optional[dict] = None
         self.preempted = False
@@ -237,11 +294,13 @@ class Trainer:
         self._swa_count = 0
         self._autosave_thread: Optional[threading.Thread] = None
         self._autosave_error: Optional[Exception] = None
-        (self.log_dir / "run_meta.json").write_text(json.dumps({
-            "model": model_name, "n_classes": n_classes,
-            "config": {k: str(v) for k, v in vars(config).items()},
-            "torch": torch.__version__, "device": str(self.device),
-        }, indent=2))
+        if self.is_main:
+            (self.log_dir / "run_meta.json").write_text(json.dumps({
+                "model": model_name, "n_classes": n_classes,
+                "config": {k: str(v) for k, v in vars(config).items()},
+                "torch": torch.__version__, "device": str(self.device),
+                "world": self.world, "dp": self.dp,
+            }, indent=2))
 
     # ------------------------------------------------------------ train step
     def _train_mode(self) -> None:
@@ -282,16 +341,19 @@ class Trainer:
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        if not self.needs_hessian:
-            loss, logits = self.loss(bags, labels, coords)
-            loss.backward()
-            self.tx.step()
-            return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
-        (loss, logits), grads, diag = value_grad_and_diag_hessian(
-            lambda: self.loss(bags, labels, coords), params,
-            generator=self.hessian_generator, has_aux=True)
+        with divisor_reduced_over(self.dp_group), batch_stats_reduced_over(self.dp_group):
+            if not self.needs_hessian:
+                loss, logits = self.loss(bags, labels, coords)
+                loss.backward()
+                self.tx.step()
+                return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
+            (loss, logits), grads, diag = value_grad_and_diag_hessian(
+                lambda: self.loss(bags, labels, coords), params,
+                generator=self.hessian_generator, has_aux=True)
         for p, g in zip(params, grads):
             p.grad = g
+        if self.dp_group is not None:  # the global batch's diagonal
+            _mean_over(list(diag), self.dp_group)
         self.tx.step(hessian=diag)
         return loss.item(), torch.softmax(logits, dim=-1).cpu().numpy()
 
@@ -366,7 +428,8 @@ class Trainer:
 
     def _preempt_return(self, history: dict, epoch: int, fit: dict, step: int = -1) -> dict:
         self._autosave_join()
-        self.ckpts.save_last(self._train_state(epoch, fit))
+        if self.is_main:
+            self.ckpts.save_last(self._train_state(epoch, fit))
         self.preempted = True
         self.logger.log(epoch, {"event": "preempted", "step": step})
         return {**history, "preempted": True}
@@ -383,25 +446,28 @@ class Trainer:
             t0 = time.time()
             # the dropout stream of an epoch depends on the epoch alone, so a
             # resumed run draws what a straight-through run draws
-            for gen, seed in ((self.dropout_generator, self.cfg.seed + 1),
-                              (self.shuffle_generator, self.cfg.seed + 2),
-                              (self.hessian_generator, self.cfg.seed + 7)):
-                gen.manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
+            # (dropout draws per process, ROADMAP C22; the Hessian probes
+            # are the same on every process)
+            per_rank = [self.rank] if self.world > 1 else []
+            for gen, seed in ((self.dropout_generator, [self.cfg.seed + 1, epoch, *per_rank]),
+                              (self.shuffle_generator, [self.cfg.seed + 2, epoch]),
+                              (self.hessian_generator, [self.cfg.seed + 7, epoch])):
+                gen.manual_seed(int(np.random.SeedSequence(seed).generate_state(1)[0]))
             losses, train_probs, train_labels = [], [], []
             for step, (batch, bags, labels, coords) in enumerate(
-                    self._staged(self.dm.train_batches(epoch))):
+                    self._staged(self.dm.train_batches(epoch, **self._shard_kw()))):
                 loss, probs = self.train_step(bags, labels, coords)
                 losses.append(loss)
                 train_probs.append(probs)
                 train_labels.append(batch.labels)
                 if self.cfg.autosave_steps and (step + 1) % self.cfg.autosave_steps == 0:
                     self._autosave(self._train_state(epoch, fit))
-                if self._preempted:
+                if self._stop_everywhere():
                     return self._preempt_return(history, epoch, fit, step)
                 if self.cfg.fast_dev_run:
                     break
+            losses, tp, tl = self._gather_train(losses, train_probs, train_labels)
             train_loss = float(np.mean(np.asarray(losses, np.float32)))
-            tp, tl = np.concatenate(train_probs), np.concatenate(train_labels)
 
             val = self.evaluate("val")
             self._epoch_figures(epoch, val, tp, tl)
@@ -443,12 +509,13 @@ class Trainer:
                     fit["plateau_since_best"] = 0
 
             self._autosave_join()  # no write in flight may race last.ckpt
-            self.ckpts.save_epoch(
-                {"model": self.model.state_dict()}, epoch,
-                {k: metrics[k] for k in ("val_loss", "val_auc", "val_accuracy")},
-                last_obj=self._train_state(epoch + 1, fit),
-            )
-            if self._preempted:  # the end-of-epoch state is on disk already
+            if self.is_main:
+                self.ckpts.save_epoch(
+                    {"model": self.model.state_dict()}, epoch,
+                    {k: metrics[k] for k in ("val_loss", "val_auc", "val_accuracy")},
+                    last_obj=self._train_state(epoch + 1, fit),
+                )
+            if self._stop_everywhere():  # the end-of-epoch state is on disk already
                 self.preempted = True
                 self.logger.log(epoch, {"event": "preempted", "step": -1})
                 return {**history, "preempted": True}
@@ -459,8 +526,37 @@ class Trainer:
             with torch.no_grad():
                 for p, a in zip(self.model.parameters(), self._swa):
                     p.copy_(a)
-            self.ckpts.save_last({"model": self.model.state_dict()})
+            if self.is_main:
+                self.ckpts.save_last({"model": self.model.state_dict()})
         return history
+
+    def _shard_kw(self) -> dict:
+        """The data module's ``shard`` argument under data parallelism."""
+        return {"shard": (self.dp_rank, self.dp)} if self.dp > 1 else {}
+
+    def _stop_everywhere(self) -> bool:
+        """The preemption flag, reduced (MAX) over every process when there
+        are several, so that all stop at the same step."""
+        if self.world == 1:
+            return self._preempted
+        flag = torch.tensor([float(self._preempted)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._preempted = bool(flag.item())
+        return self._preempted
+
+    def _gather_train(self, losses: list, probs: list, labels: list):
+        """The epoch's per-step losses averaged over dp (each process's is
+        the mean over its slice, so this is the global batch's), and every
+        process's train probabilities and labels."""
+        tp, tl = np.concatenate(probs), np.concatenate(labels)
+        if self.dp_group is None:
+            return losses, tp, tl
+        t = torch.tensor(losses, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=self.dp_group)
+        parts = [None] * self.dp
+        dist.all_gather_object(parts, (tp, tl), group=self.dp_group)
+        return ((t / self.dp).tolist(), np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
 
     def _swa_update(self) -> None:
         """The running mean of the parameters over the epochs so far
@@ -478,6 +574,8 @@ class Trainer:
         consistency point), written by a daemon thread with
         ``autosave_async`` (after the previous write, at most one in
         flight), else inline."""
+        if not self.is_main:
+            return
         if not self.cfg.autosave_async:
             self.ckpts.save_last(state)
             return
@@ -569,15 +667,19 @@ class Trainer:
         # test_visualize.py:38-120) of the heads with an attention query
         with_attn = (save_results and self.cfg.export_topk_tiles
                      and hasattr(self.model, "attn_query"))
-        all_probs, all_logits, all_labels, names, patients = [], [], [], [], []
+        all_probs, all_logits, all_labels, names, patients, topk = [], [], [], [], [], []
         self.model.eval()
         with torch.inference_mode():
             for batch, bags, _, coords in self._staged(
-                    self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size)):
+                    self.dm.eval_batches(mode, batch_size=self.cfg.eval_batch_size,
+                                         **self._shard_kw())):
                 if with_attn:
                     logits, attn = self.model(*((bags, coords) if self.coord_aware else (bags,)),
                                               return_attn=True)
-                    self._export_topk_tiles(batch, attn.tile_scores().mean(dim=1))
+                    # what the export reads (not the bags, which a gather would copy)
+                    topk.append((SimpleNamespace(names=batch.names, lengths=batch.lengths,
+                                                 coords=batch.coords),
+                                 attn.tile_scores().mean(dim=1).float().cpu()))
                 else:
                     logits = self.forward(bags, coords)
                 all_probs.append(torch.softmax(logits, dim=-1).cpu().numpy())
@@ -587,6 +689,15 @@ class Trainer:
                 patients += batch.patients
                 if self.cfg.fast_dev_run and len(names) >= 2:
                     break
+        if self.dp_group is not None:  # every process's bags, in bag order
+            parts = [None] * self.dp
+            dist.all_gather_object(parts, (all_probs, all_logits, all_labels, names, patients,
+                                           topk), group=self.dp_group)
+            all_probs, all_logits, all_labels, names, patients, topk = (
+                [x for part in parts for x in part[i]] for i in range(6))
+        if self.is_main:
+            for batch, rows in topk:
+                self._export_topk_tiles(batch, rows)
         probs = np.concatenate(all_probs)
         logits = np.concatenate(all_logits)
         labels = np.concatenate(all_labels)
@@ -608,7 +719,7 @@ class Trainer:
             "thresholds": thresholds,
             "aggregate": agg,
         }
-        if save_results:
+        if save_results and self.is_main:
             self._save_results(agg, mode=stage_name or mode)
             self._save_topk_patients(agg, thresholds, stage=stage_name or mode)
         return result
@@ -629,8 +740,9 @@ class Trainer:
                     y = (agg.targets == c).astype(np.int64)
                     if y.min() != y.max():
                         *_, thresholds[c] = youden_j_threshold(agg.scores[:, c], y)
-            _write_csv(path, {f"class_{c}": [thresholds[c]] for c in range(self.n_classes)},
-                       index=False)
+            if self.is_main:
+                _write_csv(path, {f"class_{c}": [thresholds[c]] for c in range(self.n_classes)},
+                           index=False)
         elif mode == "test" and path.exists():
             with open(path, newline="") as f:
                 row = next(csv.DictReader(f), {})
@@ -654,7 +766,7 @@ class Trainer:
     def _epoch_figures(self, epoch: int, val: dict, train_probs, train_labels) -> None:
         """Train-stage dashboard figures (ref ``model_interface.py:385-430``):
         the val patient ROC/PR every epoch, the train confusion every 10th."""
-        if not self.cfg.epoch_figures:
+        if not self.cfg.epoch_figures or not self.is_main:
             return
         try:
             from transmil_deepgraft_tpu_torch.utils.plots import (
@@ -675,6 +787,15 @@ class Trainer:
 
     def test(self) -> dict:
         result = self.evaluate("test", save_results=True, stage_name="test")
+        summary = {
+            "test_loss": result["loss"],
+            "test_auc": result["auroc"],
+            "test_patient_auc": result["patient_auroc"],
+            **result["patient_report"].as_dict("test_patient_"),
+            **result["slide_report"].as_dict("test_slide_"),
+        }
+        if not self.is_main:
+            return summary
         # figure artifacts (ref model_interface.py:814-821)
         try:
             from transmil_deepgraft_tpu_torch.utils.plots import (
@@ -689,13 +810,6 @@ class Trainer:
                 self.cfg.task, threshold=result["thresholds"][1] if self.n_classes <= 2 else 0.5)
         except Exception as e:  # figures must never fail a test run
             print(f"[trainer] figure export skipped: {e}")
-        summary = {
-            "test_loss": result["loss"],
-            "test_auc": result["auroc"],
-            "test_patient_auc": result["patient_auroc"],
-            **result["patient_report"].as_dict("test_patient_"),
-            **result["slide_report"].as_dict("test_slide_"),
-        }
         (self.log_dir / "test_metrics.json").write_text(json.dumps(summary, indent=2))
         self.logger.log(-1, summary)
         return summary

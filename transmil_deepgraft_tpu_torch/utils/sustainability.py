@@ -57,22 +57,40 @@ REGION_GCO2_PER_KWH: dict[str, float] = {
 MORTALITY_DEATHS_PER_TCO2 = 2.26e-4
 
 
+# nvidia-smi can stall for a while on a busy machine: each query is given
+# this many seconds, and a stalled one is asked again, this many times.
+SMI_TIMEOUT_S = 20
+SMI_ATTEMPTS = 3
+_card_watts_cache: dict[int, float] = {}
+
+
 def card_watts(device: Optional[str | torch.device] = None) -> float:
     """The power limit of the card (``nvidia-smi --query-gpu=power.limit``,
-    watts). Raises without a card or without ``nvidia-smi``: pass
-    ``chip_watts`` then."""
+    watts), read once a process and card. A query that stalls is asked again
+    (``SMI_ATTEMPTS`` of ``SMI_TIMEOUT_S`` seconds). Raises without a card or
+    without ``nvidia-smi``: pass ``chip_watts`` then."""
     if not torch.cuda.is_available():
         raise ValueError("no CUDA card to read the power limit of: pass chip_watts")
     index = torch.device(device).index if device is not None else None
     index = torch.cuda.current_device() if index is None else index
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", f"--id={index}", "--query-gpu=power.limit",
-             "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=60, check=True).stdout
-        return float(out.strip().splitlines()[0])
-    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
-        raise ValueError(f"could not read the card's power limit ({e}): pass chip_watts") from e
+    if index in _card_watts_cache:
+        return _card_watts_cache[index]
+    cmd = ["nvidia-smi", f"--id={index}", "--query-gpu=power.limit",
+           "--format=csv,noheader,nounits"]
+    for attempt in range(SMI_ATTEMPTS):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=SMI_TIMEOUT_S, check=True).stdout
+            watts = float(out.strip().splitlines()[0])
+            break
+        except subprocess.TimeoutExpired as e:
+            if attempt + 1 == SMI_ATTEMPTS:
+                raise ValueError(f"could not read the card's power limit ({e}): "
+                                 "pass chip_watts") from e
+        except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+            raise ValueError(f"could not read the card's power limit ({e}): pass chip_watts") from e
+    _card_watts_cache[index] = watts
+    return watts
 
 
 @dataclass
