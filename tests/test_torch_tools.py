@@ -14,7 +14,7 @@
   (bytes), the same bootstrap JSON and figure files; ``cli.export_metrics``
   of both packages writes the same CSV;
 - each ``cli._entry`` shim runs its port CLI's ``main`` and returns 0;
-  ``StepTimer.summary`` has JAX's keys; ``trace`` writes a Chrome trace.
+  ``trace`` writes a Chrome trace and the region's spans and counters.
 """
 
 import csv
@@ -31,7 +31,6 @@ from transmil_deepgraft_tpu.cli import export_metrics as jcli_export
 from transmil_deepgraft_tpu.train.aggregation import aggregate_patients
 from transmil_deepgraft_tpu.train.trainer import Trainer as JTrainer
 from transmil_deepgraft_tpu.utils import export_metrics as jexport
-from transmil_deepgraft_tpu.utils import profiling as jprof
 from transmil_deepgraft_tpu.utils import sustainability as jsus
 from transmil_deepgraft_tpu_torch.cli import _entry
 from transmil_deepgraft_tpu_torch.cli import export_metrics as tcli_export
@@ -246,14 +245,16 @@ def test_entry_shims_resolve_to_the_port_clis(name, monkeypatch):
 
 
 def test_step_timer_and_trace(tmp_path):
-    mine, theirs = tprof.StepTimer(), jprof.StepTimer()
-    assert mine.summary() == theirs.summary() == {}
-    for _ in range(3):
-        with mine, theirs:
-            sum(range(1000))
-    assert mine.summary().keys() == theirs.summary().keys()
-    assert mine.summary()["steps"] == 3
+    """``trace`` writes the region's Chrome trace and, beside it, its spans
+    and counters (``spans.json``). The port has no ``StepTimer``: it
+    synchronised the card each step, which a rate must not do."""
+    assert not hasattr(tprof, "StepTimer")
     with tprof.trace(tmp_path / "prof") as d:
-        np.ones(10).sum()
+        with tprof.span("tools.sum"):
+            np.ones(10).sum()
+        tprof.count("tools.items", 2)
     assert (d / "trace.json").exists()
     json.loads((d / "trace.json").read_text())
+    spans = json.loads((d / "spans.json").read_text())
+    assert spans["spans"]["tools.sum"]["calls"] == 1
+    assert spans["counters"] == {"tools.items": 2}

@@ -237,7 +237,7 @@ def test_kfold_cli_runs_and_ensembles(run, tmp_path):
     assert 0.0 <= out["ensemble_auc"] <= 1.0
     for name in ("kfold/model.0.pt", "kfold/model.1.pt", "kfold/ensemble_metrics.json",
                  "kfold/fold0/test_metrics.json", "kfold/fold1/ENSEMBLE_RESULT_SLIDE.csv",
-                 "trace/trace.json"):
+                 "trace/trace.json", "trace/spans.json"):
         assert (tmp_path / name).exists(), name
 
 

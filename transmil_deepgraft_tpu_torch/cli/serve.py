@@ -11,7 +11,9 @@ Endpoints:
 
 - ``GET /health``  -> ``{"status": "ok", "model": ..., "buckets": [...]}``
 - ``GET /meta``    -> the full bundle metadata
-- ``GET /metrics`` -> request counters and a latency histogram (Prometheus text)
+- ``GET /metrics`` -> request counters and a latency histogram, the
+  micro-batcher's queue wait histogram, bags a dispatch and sheds
+  (Prometheus text)
 - ``POST /predict`` -> logits/probs/pred for one or more feature bags.
   Body is either JSON ``{"features": [[...], ...]}`` (one bag, n x D) /
   ``{"bags": [[[...]]]}`` (batch), or a raw ``.npy`` array (n, D) or
@@ -40,6 +42,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from transmil_deepgraft_tpu_torch.serving import LATENCY_BUCKETS
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -101,13 +105,15 @@ def _predict(batcher, feats: np.ndarray, coords=None) -> dict:
 
 
 class _Metrics:
-    """Request counters + latency histogram, exposed in Prometheus text
-    format at ``GET /metrics``."""
+    """Request counters + latency histogram, and the MicroBatcher's queue
+    wait (a histogram in the same buckets), bags a dispatch and sheds,
+    exposed in Prometheus text format at ``GET /metrics``."""
 
-    BUCKETS = (0.005, 0.025, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0)
+    BUCKETS = LATENCY_BUCKETS
 
-    def __init__(self) -> None:
+    def __init__(self, batcher) -> None:
         self._lock = threading.Lock()
+        self.batcher = batcher
         self.requests: dict[tuple[str, int], int] = {}
         self.hist: dict[str, list[int]] = {}  # endpoint -> per-bucket counts + inf
         self.sum_s: dict[str, float] = {}
@@ -126,7 +132,20 @@ class _Metrics:
                 h[-1] += 1
             self.sum_s[endpoint] = self.sum_s.get(endpoint, 0.0) + seconds
 
+    def _histogram(self, name: str, counts: list, total_s: float, label: str = "") -> list[str]:
+        """Cumulative ``_bucket`` lines, ``_sum`` and ``_count``, each with
+        ``label`` (``key="value"``) where one is given."""
+        sep, tag = (label + ",", "{" + label + "}") if label else ("", "")
+        lines, cum = [], 0
+        for b, n in zip(self.BUCKETS, counts):
+            cum += n
+            lines.append(f'{name}_bucket{{{sep}le="{b}"}} {cum}')
+        cum += counts[-1]
+        lines.append(f'{name}_bucket{{{sep}le="+Inf"}} {cum}')
+        return lines + [f"{name}_sum{tag} {total_s:.6f}", f"{name}_count{tag} {cum}"]
+
     def render(self) -> str:
+        queue = self.batcher.stats()
         with self._lock:
             lines = ["# TYPE transmil_requests_total counter"]
             for (ep, status), n in sorted(self.requests.items()):
@@ -135,23 +154,19 @@ class _Metrics:
                 )
             lines.append("# TYPE transmil_request_seconds histogram")
             for ep, h in sorted(self.hist.items()):
-                cum = 0
-                for b, n in zip(self.BUCKETS, h):
-                    cum += n
-                    lines.append(
-                        f'transmil_request_seconds_bucket{{endpoint="{ep}",le="{b}"}} {cum}'
-                    )
-                cum += h[-1]
-                lines.append(
-                    f'transmil_request_seconds_bucket{{endpoint="{ep}",le="+Inf"}} {cum}'
-                )
-                lines.append(
-                    f'transmil_request_seconds_sum{{endpoint="{ep}"}} {self.sum_s[ep]:.6f}'
-                )
-                lines.append(f'transmil_request_seconds_count{{endpoint="{ep}"}} {cum}')
+                lines += self._histogram("transmil_request_seconds", h, self.sum_s[ep],
+                                         f'endpoint="{ep}"')
             lines.append("# TYPE transmil_uptime_seconds gauge")
             lines.append(f"transmil_uptime_seconds {time.time() - self.started:.1f}")
-            return "\n".join(lines) + "\n"
+        lines.append("# TYPE transmil_queue_wait_seconds histogram")
+        lines += self._histogram("transmil_queue_wait_seconds", queue["wait_counts"],
+                                 queue["wait_s"])
+        lines.append("# TYPE transmil_dispatch_bags summary")
+        lines.append(f"transmil_dispatch_bags_sum {queue['bags']}")
+        lines.append(f"transmil_dispatch_bags_count {queue['dispatches']}")
+        lines.append("# TYPE transmil_shed_total counter")
+        lines.append(f"transmil_shed_total {queue['shed']}")
+        return "\n".join(lines) + "\n"
 
 
 def make_server(bundle, host: str, port: int,
@@ -163,7 +178,7 @@ def make_server(bundle, host: str, port: int,
     # decoding and validation run concurrently on handler threads
     lock = threading.Lock()
     batcher = MicroBatcher(bundle, device_lock=lock, max_queue=max_queue)
-    metrics = _Metrics()
+    metrics = _Metrics(batcher)
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict, headers: dict | None = None) -> None:

@@ -70,7 +70,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--check_home", action="store_true",
                    help="re-root absolute data/log paths onto this host's mount root")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the stage to DIR/trace.json")
+                   help="write a torch.profiler trace of the stage to DIR/trace.json, "
+                        "its spans and counters to DIR/spans.json")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain versions)")
     return p
@@ -258,16 +259,10 @@ def main(argv: list[str] | None = None) -> dict:
     trainer = build(cfg, log_dir=args.log_dir, device=args.device, **_mesh_kw(mesh))
     if not args.profile:
         return _dispatch(args, cfg, trainer)
-    from torch.profiler import ProfilerActivity, profile
+    from transmil_deepgraft_tpu_torch.utils.profiling import trace
 
-    activities = [ProfilerActivity.CPU]
-    if trainer.device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        result = _dispatch(args, cfg, trainer)
-    Path(args.profile).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(args.profile) / "trace.json"))
-    return result
+    with trace(args.profile):
+        return _dispatch(args, cfg, trainer)
 
 
 def _dispatch(args, cfg, trainer) -> dict:

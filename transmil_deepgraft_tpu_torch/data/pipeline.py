@@ -19,6 +19,8 @@ from typing import Any, Callable, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from transmil_deepgraft_tpu_torch.utils.profiling import span
+
 
 def shard_for_host(items: Sequence[Any], host_id: int | None = None,
                    n_hosts: int | None = None) -> Sequence[Any]:
@@ -72,7 +74,8 @@ def prefetch(iterator: Iterable[Any], size: int = 2,
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):  # the consumer held up by its input
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]

@@ -26,6 +26,7 @@ each process decodes only its shard of each chunk.
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
@@ -37,6 +38,7 @@ from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD,
 from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models import head_logits
 from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, axis_size
+from transmil_deepgraft_tpu_torch.utils import profiling
 
 
 def decode_tile_paths(paths, size: int = 224, scaled_dct: bool = True) -> np.ndarray:
@@ -102,7 +104,8 @@ def embed_chunk(core: Callable[[torch.Tensor], torch.Tensor], batch: np.ndarray,
     """One host chunk -> (chunk, D) float32 features from the backbone
     ``core`` on the device of ``mean``. Raw uint8 tiles ship 4x fewer bytes
     and are ImageNet-normalized on the device (``mean``, ``std``)."""
-    x = torch.from_numpy(np.ascontiguousarray(batch)).to(mean.device)
+    with profiling.span("slide.copy"):
+        x = torch.from_numpy(np.ascontiguousarray(batch)).to(mean.device)
     if x.dtype == torch.uint8:
         x = (x.float() / 255.0 - mean) / std
     with torch.inference_mode():
@@ -254,25 +257,42 @@ class SlideInferencePipeline:
                             tile_size: int = 224) -> np.ndarray:
         """Tile image paths on disk -> (C,) slide probabilities, streamed
         (see :meth:`embed_paths_device`)."""
-        return self._probs(self.embed_paths_device(paths, tile_size=tile_size), coords)
+        with self._allocs_counted():
+            return self._probs(self.embed_paths_device(paths, tile_size=tile_size), coords)
 
     def predict_slide_paths_with_attention(
         self, paths, coords: Optional[np.ndarray] = None, *, tile_size: int = 224
     ) -> tuple[np.ndarray, np.ndarray]:
         """Streamed :meth:`predict_slide_with_attention`."""
-        feats = self.embed_paths_device(paths, tile_size=tile_size)
-        return self._attention_from_feats(feats, len(paths), coords)
+        with self._allocs_counted():
+            feats = self.embed_paths_device(paths, tile_size=tile_size)
+            return self._attention_from_feats(feats, len(paths), coords)
 
     def predict_slide(self, tiles: np.ndarray, coords: Optional[np.ndarray] = None) -> np.ndarray:
         """(N, H, W, 3) tiles -> (C,) slide class probabilities. ``coords``
         ((N, 2) tile grid positions) feed a coord-aware head."""
-        return self._probs(self.embed_device(tiles), coords)
+        with self._allocs_counted():
+            return self._probs(self.embed_device(tiles), coords)
 
     def predict_slide_with_attention(
         self, tiles: np.ndarray, coords: Optional[np.ndarray] = None
     ) -> tuple[np.ndarray, np.ndarray]:
         """Returns (probs (C,), per-tile attention scores (N,))."""
-        return self._attention_from_feats(self.embed_device(tiles), len(tiles), coords)
+        with self._allocs_counted():
+            return self._attention_from_feats(self.embed_device(tiles), len(tiles), coords)
+
+    @contextlib.contextmanager
+    def _allocs_counted(self):
+        """Count the slide's device allocations (``slide.device_allocs``)
+        while a profiler runs: the allocator's count at its entry and exit."""
+        if not profiling.enabled():
+            yield
+            return
+        before = profiling.device_allocs(self.device)
+        try:
+            yield
+        finally:
+            profiling.count("slide.device_allocs", profiling.device_allocs(self.device) - before)
 
     def _head(self, feats: torch.Tensor, coords, **kw):
         """The head's logits on one (N, D) bag (with ``return_attn=True``
@@ -290,13 +310,13 @@ class SlideInferencePipeline:
         return self.head(*args, **kw) if kw else head_logits(self.head, *args)
 
     def _probs(self, feats: torch.Tensor, coords=None) -> np.ndarray:
-        with torch.inference_mode():
+        with profiling.span("slide.head"), torch.inference_mode():
             probs = torch.softmax(self._head(feats, coords), dim=-1)
-        return probs.cpu().numpy()[0]
+            return probs.cpu().numpy()[0]
 
     def _attention_from_feats(self, feats: torch.Tensor, n_tiles: int,
                               coords=None) -> tuple[np.ndarray, np.ndarray]:
-        with torch.inference_mode():
+        with profiling.span("slide.head"), torch.inference_mode():
             logits, attn = self._head(feats, coords, return_attn=True)
             probs = torch.softmax(logits, dim=-1).cpu().numpy()[0]
             # TransMIL-family heads return a payload with tile_scores()

@@ -58,6 +58,7 @@ from transmil_deepgraft_tpu_torch.ops.quantization import (
     quantize_weight,
     zero_point_bias,
 )
+from transmil_deepgraft_tpu_torch.utils.profiling import span
 
 LAYERS_R50 = (3, 4, 6, 3)
 PLANES = (64, 128, 256, 512)
@@ -374,16 +375,17 @@ def _plain_blocks(x: torch.Tensor, blocks, strides) -> torch.Tensor:
 def _stem_q(q: QResNet50, tiles: torch.Tensor) -> torch.Tensor:
     """Input quantization, space-to-depth stem conv, requant, 3x3/2 max-pool
     with a -128 floor: (N, H, W, 3) float -> (N, H/4, W/4, 64) int8 codes."""
-    n, hh, ww, _ = tiles.shape
-    x_q = torch.clamp(torch.round(tiles.float() / q.input_scale), -127, 127).to(torch.int8)
-    # space-to-depth by 2: (N, H, W, 3) -> (N, H/2, W/2, 12), channel (di,dj,ci)
-    x_q = x_q.reshape(n, hh // 2, 2, ww // 2, 2, 3)
-    x_q = x_q.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 12)
-    x_q = F.pad(x_q, (0, 0, 2, 1, 2, 1))  # zero is exact: symmetric input codes
-    stem_q = _rq(_conv_q(x_q, q.stem_w), q.stem_m, q.stem_z)
-    pooled = F.max_pool2d(
-        F.pad(stem_q.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), value=-128.0), 3, stride=2)
-    return pooled.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+    with span("backbone.stem"):
+        n, hh, ww, _ = tiles.shape
+        x_q = torch.clamp(torch.round(tiles.float() / q.input_scale), -127, 127).to(torch.int8)
+        # space-to-depth by 2: (N, H, W, 3) -> (N, H/2, W/2, 12), channel (di,dj,ci)
+        x_q = x_q.reshape(n, hh // 2, 2, ww // 2, 2, 3)
+        x_q = x_q.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 12)
+        x_q = F.pad(x_q, (0, 0, 2, 1, 2, 1))  # zero is exact: symmetric input codes
+        stem_q = _rq(_conv_q(x_q, q.stem_w), q.stem_m, q.stem_z)
+        pooled = F.max_pool2d(
+            F.pad(stem_q.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), value=-128.0), 3, stride=2)
+        return pooled.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
 
 def _pool(q: QResNet50, out_q: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,7 @@ import torch
 
 from transmil_deepgraft_tpu_torch.ops import _build
 from transmil_deepgraft_tpu_torch.ops.nystrom import _segment_means
-from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz_pinv
+from transmil_deepgraft_tpu_torch.ops.pinv import newton_schulz, newton_schulz_pinv
 
 # The only shape the kernels are built for: the model the repository ships.
 KERNEL_DIM_HEAD, KERNEL_LANDMARKS = 64, 256
@@ -493,9 +493,9 @@ def nystrom_attention_bwd(q, k, v, g, *, num_landmarks, pinv_iterations):
     k_lm = _segment_means(kf, m)
 
     a2 = torch.softmax(q_lm @ k_lm.transpose(-1, -2), dim=-1)
-    with torch.enable_grad():
+    with torch.enable_grad():  # the recompute is the backward's work, not the forward pinv's
         a2_var = a2.detach().requires_grad_(True)
-        z_var = newton_schulz_pinv(a2_var, pinv_iterations)
+        z_var = newton_schulz(a2_var, pinv_iterations)
     z = z_var.detach()
 
     a1 = torch.softmax(qs @ k_lm.transpose(-1, -2), dim=-1)  # (b, h, n, m)

@@ -16,6 +16,9 @@ devices). Inside :func:`divisor_reduced_over` the two maxima are
 global batch's divisor and dp training equals one-device training. The
 setting is process-wide (not per thread), because the analytic backward of
 the fused attention recomputes the pinv on autograd's own thread.
+
+:func:`newton_schulz_pinv` is the ``pinv`` span of a trace; that recompute
+calls :func:`newton_schulz` and counts as the backward's.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from transmil_deepgraft_tpu_torch.utils.profiling import span
 
 # the process group the divisor is reduced over, or None
 _DIVISOR_GROUP: list = [None]
@@ -56,6 +61,12 @@ def _init_divisor(abs_a: torch.Tensor) -> torch.Tensor:
 
 def newton_schulz_pinv(a: torch.Tensor, iters: int = 6) -> torch.Tensor:
     """Approximate pseudo-inverse of ``a`` (shape ``(..., m, m)``), in float32."""
+    with span("pinv"):
+        return newton_schulz(a, iters)
+
+
+def newton_schulz(a: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """:func:`newton_schulz_pinv` outside the ``pinv`` span."""
     orig_dtype = a.dtype
     a32 = a.float()
     z = a32.transpose(-1, -2) / _init_divisor(a32.abs())

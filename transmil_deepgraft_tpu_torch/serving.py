@@ -44,8 +44,10 @@ the device and runs the head on the bag.
 
 from __future__ import annotations
 
+import bisect
 import io
 import json
+import time
 import zipfile
 from pathlib import Path
 from typing import Any, Mapping, Sequence
@@ -63,8 +65,13 @@ from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
 from transmil_deepgraft_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 from transmil_deepgraft_tpu_torch.utils.jax_params import (
     flatten, head_knobs_from_params, head_state_dict_from_jax, unflatten)
+from transmil_deepgraft_tpu_torch.utils.profiling import span
 
 FORMAT_VERSION = 1
+# bounds (seconds) of the serving daemon's latency histograms: each
+# request's, and each bag's wait in the MicroBatcher's queue
+LATENCY_BUCKETS = (0.005, 0.025, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0)
+
 # Serving buckets default to the mid-range of ops.padding.DEFAULT_BUCKETS.
 DEFAULT_SERVING_BUCKETS: tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192, 16384)
 # Slide bundles serve whole slides, so their head buckets reach the tile
@@ -642,6 +649,10 @@ class MicroBatcher:
     once the first bag is in hand. Bags for other buckets wait for the next
     dispatch. At ``max_queue`` admitted-but-unanswered requests, new ones are
     shed with :class:`QueueFullError`.
+
+    :meth:`stats` counts, from the start: each request's queue wait (its
+    enqueue to the start of its dispatch, once that has the device) in
+    :data:`LATENCY_BUCKETS`, the bags a dispatch, and the requests shed.
     """
 
     _CLOSE = object()
@@ -656,7 +667,10 @@ class MicroBatcher:
         self.max_wait_s = max_wait_ms / 1e3
         self.max_queue = int(max_queue)
         self._depth = 0
-        self._depth_lock = threading.Lock()
+        self._depth_lock = threading.Lock()  # also guards the counters below
+        self._wait_counts = [0] * (len(LATENCY_BUCKETS) + 1)  # the last: beyond them
+        self._wait_s = 0.0
+        self._dispatches = self._bags = self._shed = 0
         self._q: "_queue.Queue" = _queue.Queue()
         self._queue_mod = _queue
         # serializes device use with other device users; held per dispatch
@@ -669,6 +683,24 @@ class MicroBatcher:
         """Requests admitted but not yet answered (queued + in dispatch)."""
         with self._depth_lock:
             return self._depth
+
+    def stats(self) -> dict:
+        """``wait_counts`` (per bucket of :data:`LATENCY_BUCKETS`, then beyond),
+        ``wait_s`` (their sum), ``dispatches``, ``bags`` and ``shed``."""
+        with self._depth_lock:
+            return {"wait_counts": list(self._wait_counts), "wait_s": self._wait_s,
+                    "dispatches": self._dispatches, "bags": self._bags, "shed": self._shed}
+
+    def _count_dispatch(self, group: list, start: float) -> None:
+        """Each bag's queue wait (its enqueue stamp to ``start``, when the
+        dispatch has the device) and the dispatch's bags."""
+        with self._depth_lock:
+            for g in group:
+                wait = start - g[3]
+                self._wait_counts[bisect.bisect_left(LATENCY_BUCKETS, wait)] += 1
+                self._wait_s += wait
+            self._dispatches += 1
+            self._bags += len(group)
 
     def _release(self, k: int = 1) -> None:
         with self._depth_lock:
@@ -702,6 +734,7 @@ class MicroBatcher:
 
         with self._depth_lock:
             if self._depth >= self.max_queue:
+                self._shed += 1
                 raise QueueFullError(
                     self._depth, self.max_queue,
                     retry_after_s=max(1.0, self._depth * self.max_wait_s),
@@ -714,11 +747,10 @@ class MicroBatcher:
             self._release()
             raise
         fut: Future = Future()
-        self._q.put((target, feats, coords, fut))
+        self._q.put((target, feats, coords, time.perf_counter(), fut))
         return fut
 
     def _run(self) -> None:
-        import time as _time
         from collections import deque
 
         pending: deque = deque()
@@ -754,9 +786,9 @@ class MicroBatcher:
                 if other[0] == key:
                     pending.remove(other)
                     group.append(other)
-            deadline = _time.monotonic() + self.max_wait_s
+            deadline = time.monotonic() + self.max_wait_s
             while len(group) < self.eb:  # then stragglers on the live queue
-                timeout = deadline - _time.monotonic()
+                timeout = deadline - time.monotonic()
                 if timeout <= 0:
                     break
                 try:
@@ -775,8 +807,11 @@ class MicroBatcher:
     def _dispatch(self, group: list) -> None:
         try:
             coords = None if group[0][2] is None else [g[2] for g in group]
-            with self._device_lock:  # the batch is filled with zero bags
-                logits = self.bundle._logits([g[1] for g in group], group[0][0], self.eb, coords)
+            with self._device_lock:
+                self._count_dispatch(group, time.perf_counter())
+                with span("serve.dispatch"):  # the batch is filled with zero bags
+                    logits = self.bundle._logits([g[1] for g in group], group[0][0], self.eb,
+                                                 coords)
             for i, (*_, fut) in enumerate(group):
                 fut.set_result(logits[i])
         except Exception as e:  # noqa: BLE001 - deliver to every waiter

@@ -137,6 +137,7 @@ from transmil_deepgraft_tpu_torch.utils.config import LABEL_MAP
 from transmil_deepgraft_tpu_torch.utils.jax_params import (
     classic_state_dict_from_jax, head_state_dict_from_jax, optimizer_state_from_jax)
 from transmil_deepgraft_tpu_torch.utils.logging import MetricLogger
+from transmil_deepgraft_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -337,25 +338,33 @@ class Trainer:
                    coords: Optional[torch.Tensor] = None) -> tuple[float, np.ndarray]:
         """One micro-step: forward, backward, optimizer. Returns (loss,
         probs). Under AdaHessian the same forward also gives the
-        Hutchinson diagonal, which the optimizer's step takes."""
+        Hutchinson diagonal, which the optimizer's step takes; that forward
+        then counts as the ``train.backward`` span's."""
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
         with divisor_reduced_over(self.dp_group), batch_stats_reduced_over(self.dp_group):
             if not self.needs_hessian:
-                loss, logits = self.loss(bags, labels, coords)
-                loss.backward()
-                self.tx.step()
-                return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
-            (loss, logits), grads, diag = value_grad_and_diag_hessian(
-                lambda: self.loss(bags, labels, coords), params,
-                generator=self.hessian_generator, has_aux=True)
+                with span("train.forward"):
+                    loss, logits = self.loss(bags, labels, coords)
+                with span("train.backward"):
+                    loss.backward()
+                with span("train.update"):
+                    self.tx.step()
+                with span("train.readback"):
+                    return loss.item(), torch.softmax(logits.detach(), dim=-1).cpu().numpy()
+            with span("train.backward"):
+                (loss, logits), grads, diag = value_grad_and_diag_hessian(
+                    lambda: self.loss(bags, labels, coords), params,
+                    generator=self.hessian_generator, has_aux=True)
         for p, g in zip(params, grads):
             p.grad = g
-        if self.dp_group is not None:  # the global batch's diagonal
-            _mean_over(list(diag), self.dp_group)
-        self.tx.step(hessian=diag)
-        return loss.item(), torch.softmax(logits, dim=-1).cpu().numpy()
+        with span("train.update"):
+            if self.dp_group is not None:  # the global batch's diagonal
+                _mean_over(list(diag), self.dp_group)
+            self.tx.step(hessian=diag)
+        with span("train.readback"):
+            return loss.item(), torch.softmax(logits, dim=-1).cpu().numpy()
 
     def _batch_arrays(self, batch) -> tuple:
         """(bags, int64 labels, coords) of a batch, numpy: the (B, N, 2)
