@@ -487,6 +487,13 @@ def segment_runs(q) -> list:
     return runs
 
 
+def stem_costs(n: int, h: int, w: int) -> tuple[int, int]:
+    """The int8 stem's operations (the 7x7x3 window of 64 channels at every
+    stride-2 position) and bytes (float32 tiles in, pooled codes out)."""
+    ops = 2 * n * (h // 2) * (w // 2) * 64 * 7 * 7 * 3
+    return ops, n * h * w * 3 * 4 + n * (h // 4) * (w // 4) * 64
+
+
 def segment_costs(blocks, entry: bool, x_shape) -> tuple[int, int]:
     """(int8 operations = 2 * MACs, least bytes) of one segment on an
     (n, h, w, c) int8 input: the input and every weight and fma constant read
@@ -763,6 +770,7 @@ def phase_qstage(rng, results: dict, dev) -> tuple:
     import torch
 
     from transmil_deepgraft_tpu_torch.models.resnet_int8 import _stem_q, build_qresnet50
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
 
     variables = random_resnet50_variables(rng)
     tiles_u8 = rng.integers(0, 256, (SLIDE_TILES, TILE, TILE, 3), dtype=np.uint8)
@@ -772,6 +780,23 @@ def phase_qstage(rng, results: dict, dev) -> tuple:
     sync(dev)
     log(f"[qstage] build_qresnet50 on {CALIB_TILES} tiles of {TILE}x{TILE}: "
         f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        for n_tiles in (EXTRACT_BATCH, CHUNK):
+            xs = torch.from_numpy(normalize_tiles(tiles_u8[:n_tiles])).to(dev)
+            got = qk.fused_stem(xs, q)
+            sync(dev)
+            want = qk.stem_reference(xs, q)
+            bad = int((got != want).sum())
+            ms = cuda_ms(lambda: qk.fused_stem(xs, q))
+            plain_ms = cuda_ms(lambda: qk.stem_reference(xs, q), reps=3, warmup=1)
+            ops, nbytes = stem_costs(n_tiles, TILE, TILE)
+            t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+            log(f"[qstage] stem (qstem_run) at {n_tiles} tiles: {bad} differing int8 codes of "
+                f"{want.numel()}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{max(t_ops, t_bytes):.4f} ms by {'operations' if t_ops > t_bytes else 'bytes'} "
+                f"({ops:.3e} int8 OP, {nbytes / 1e6:.1f} MB)")
+            if bad:
+                raise AssertionError(f"the stem kernel disagrees with the plain stem at {n_tiles}")
     runs = segment_runs(q)
     worst = {"qstage_run": 0, "qentry_run": 0}  # max |code difference| by kernel
     with torch.inference_mode():
@@ -854,7 +879,7 @@ def phase_pipeline(rng, results: dict, dev, variables, tiles_u8, calib) -> None:
     chunks = -(-SLIDE_TILES // CHUNK)
     log(f"[pipeline] predict_slide, {SLIDE_TILES} uint8 tiles ({chunks} chunks): {ms:.2f} ms, "
         f"probs {probs.tolist()}, launches {launches}")
-    expected = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks,
+    expected = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks, "qstem_run": chunks,
                 "translayer_k1": 2, "translayer_k2": 2}
     if launches != expected:
         raise AssertionError(f"expected launches {expected}, got {launches}")
@@ -972,7 +997,7 @@ def counted(run):
 
 
 def expect_launches(route: str, got: dict, chunks: int, head_calls: int) -> None:
-    want = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks,
+    want = {"qstage_run": 4 * chunks, "qentry_run": 3 * chunks, "qstem_run": chunks,
             "translayer_k1": 2 * head_calls, "translayer_k2": 2 * head_calls}
     log(f"[serve] {route}: launches {got}")
     if got != want:
@@ -2130,7 +2155,8 @@ def phase_heads(rng, results: dict, dev, variables) -> None:
         infer_s = time.perf_counter() - t0
         chunks = -(-DISK_TILES // CHUNK)
         expect_launches_exactly("[heads] cli.infer --model RoFormerMIL", launches,
-                                qstage_run=4 * chunks, qentry_run=3 * chunks)
+                                qstage_run=4 * chunks, qentry_run=3 * chunks,
+                                qstem_run=chunks)
         err = float(np.abs(np.asarray(got["probs"]) - want_probs).max())
         grid = slide_bundle.predict_slide(tiles)
         log(f"[heads] cli.infer --model RoFormerMIL, one slide of {DISK_TILES} JPEG tiles named "
@@ -2519,7 +2545,8 @@ def phase_extract(rng, results: dict, dev, variables) -> None:
                     f"launches {launches}")
                 expect_launches_exactly(f"extract {route}", launches,
                                         qstage_run=4 * batches if int8 else 0,
-                                        qentry_run=3 * batches if int8 else 0)
+                                        qentry_run=3 * batches if int8 else 0,
+                                        qstem_run=batches if int8 else 0)
                 feats[route] = {n: h5.read(root / route / f"{n}.h5") for n in names}
             clock.update(decode=0.0, stream=0.0)
             _, launches = all_launch_counts(lambda: quiet(cli_extract.main, [
@@ -2603,14 +2630,15 @@ def phase_extract(rng, results: dict, dev, variables) -> None:
             x = torch.zeros((EXTRACT_BATCH, TILE, TILE, 3), device=dev)
             x[:len(paths)] = batch.to(dev)
             with torch.inference_mode():
-                plain = qr.apply_qresnet50_fused(prep, x, t_cfg=(0,) * 7)
+                stage1 = qr._plain_blocks(qk.stem_reference(x, q), q.blocks[0:3], [1] * 3)
+                plain = qr._pool(q, qr._later_stages(q, stage1, (0,) * 6))
                 for route, run in (("apply_qresnet50", lambda: qr.apply_qresnet50(q, x)), (
                         "apply_qresnet50_fused", lambda: qr.apply_qresnet50_fused(
                             prep, x, t_cfg=fe.FUSED_T_CFG))):
                     qk.reset_launch_counts()
                     got = run()
                     sync(dev)
-                    if dict(qk.LAUNCHES) != {"qstage_run": 4, "qentry_run": 3}:
+                    if dict(qk.LAUNCHES) != {"qstage_run": 4, "qentry_run": 3, "qstem_run": 1}:
                         raise AssertionError(f"{route}: launches {qk.LAUNCHES}")
                     if not torch.equal(got, plain):
                         raise AssertionError(f"{route} at {EXTRACT_BATCH} tiles ({label}) "
@@ -4004,9 +4032,9 @@ def phase_parallel(rng, results: dict, dev) -> None:
         + f" (PERF.md section 5's pipeline chunk: {PAR_CHUNK_MS} ms)")
     if not torch.equal(wpack, full):
         raise AssertionError("apply_qresnet50_wpack1 is not bit-exact to apply_qresnet50")
-    if wpack_launches != {"qstage_run": 4, "qentry_run": 3}:
+    if wpack_launches != {"qstage_run": 4, "qentry_run": 3, "qstem_run": 1}:
         raise AssertionError(f"wpack1 launches {wpack_launches}")
-    if bf16_launches != {"qstage_run": 3, "qentry_run": 3}:
+    if bf16_launches != {"qstage_run": 3, "qentry_run": 3, "qstem_run": 0}:
         raise AssertionError(f"bf16s1 launches {bf16_launches}")
     if not (cos_mixed > 0.999 and cos_mixed >= cos_full - 1e-4):
         raise AssertionError(f"bf16s1 cosine {cos_mixed} (full int8 {cos_full})")
@@ -4042,8 +4070,8 @@ def phase_parallel(rng, results: dict, dev) -> None:
     steps = -(-PAR_TILES // (CHUNK * PAR_WORLD))
     per_step = PAR_TRAIN["n_train"] // PAR_BATCH
     val_bags = PAR_TRAIN["n_val"] // PAR_WORLD
-    want_embed = {"qstage_run": 4 * steps, "qentry_run": 3 * steps, "translayer_k1": 2,
-                  "translayer_k2": 2}
+    want_embed = {"qstage_run": 4 * steps, "qentry_run": 3 * steps, "qstem_run": steps,
+                  "translayer_k1": 2, "translayer_k2": 2}
     want_fit = {"nystrom_landmark_attn": 2 * per_step, "nystrom_query_lm": 2 * per_step,
                 "translayer_k1": 2 * val_bags, "translayer_k2": 2 * val_bags}
     for r in ranks:

@@ -116,7 +116,7 @@ def _check_repeat_call(run, first, kernel: str) -> None:
     torch.cuda.synchronize()
     assert torch.equal(again, first)
     assert qk.PREPARES["blocks"] == prepared
-    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 0, kernel: 2}
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 0, "qstem_run": 0, kernel: 2}
 
 
 @pytest.mark.cuda
@@ -140,7 +140,7 @@ def test_qstage_kernel_matches_plain_version(cuda_device, shape):
     want = qk.stage_reference(x, blocks)
     assert torch.unique(want).numel() > 200  # the check sees the whole code range
     assert int((got != want).sum()) == 0
-    assert qk.LAUNCHES == {"qstage_run": 1, "qentry_run": 0}
+    assert qk.LAUNCHES == {"qstage_run": 1, "qentry_run": 0, "qstem_run": 0}
     _check_repeat_call(lambda: qk.fused_bottleneck_stage(x, blocks), got, "qstage_run")
 
 
@@ -163,7 +163,7 @@ def test_qentry_kernel_matches_plain_version(cuda_device, shape):
     assert got.shape == (n, hw // 2, hw // 2, cout)
     assert torch.unique(want).numel() > 200
     assert int((got != want).sum()) == 0
-    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 1}
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 1, "qstem_run": 0}
     _check_repeat_call(lambda: qk.fused_entry_block(x, blk), got, "qentry_run")
 
 
@@ -197,8 +197,9 @@ def test_int8_resnet_at_the_extraction_batch(cuda_device, real):
     (the ragged last batch: 37 real tiles, zero-padded to 100), through
     ``apply_qresnet50`` (the kernels, one tile per step) and
     ``apply_qresnet50_fused`` with extraction's t_cfg (1, 1, 2, 1, 2, 1, 2):
-    both give the all-plain route's features bit for bit (the same codes),
-    each with 4 stage and 3 entry launches."""
+    both give the all-plain route's features (the torch-op stem, then the
+    plain block loop) bit for bit (the same codes), each with 1 stem, 4 stage
+    and 3 entry launches."""
     from transmil_deepgraft_tpu_torch.data.feature_extractor import FUSED_T_CFG
     from transmil_deepgraft_tpu_torch.models import resnet_int8 as qr
     from transmil_deepgraft_tpu_torch.models.resnet import resnet50
@@ -219,14 +220,108 @@ def test_int8_resnet_at_the_extraction_batch(cuda_device, real):
     q = qr.build_qresnet50(variables_from_module(net), tiles[:8], device=cuda_device)
     prep = qr.prepare_qresnet50_fused(q)
     x = torch.from_numpy(tiles).to(cuda_device)
-    want = qr.apply_qresnet50_fused(prep, x, t_cfg=(0,) * 7)
+    stage1 = qr._plain_blocks(qk.stem_reference(x, q), q.blocks[0:3], [1] * 3)
+    want = qr._pool(q, qr._later_stages(q, stage1, (0,) * 6))
     for run in (lambda: qr.apply_qresnet50(q, x),
                 lambda: qr.apply_qresnet50_fused(prep, x, t_cfg=FUSED_T_CFG)):
         qk.reset_launch_counts()
         got = run()
         torch.cuda.synchronize()
-        assert qk.LAUNCHES == {"qstage_run": 4, "qentry_run": 3}
+        assert qk.LAUNCHES == {"qstage_run": 4, "qentry_run": 3, "qstem_run": 1}
         assert torch.equal(got, want)
+
+
+# (N, H, W, what the tiles and the stem hold); every case's codes are held
+# to the torch-op stem on the same CUDA tensors
+STEM_CASES = {
+    "batch1-224": (1, 224, 224, "normal"),
+    "extraction-100-224": (100, 224, 224, "normal"),
+    "chunk-128-224": (128, 224, 224, "normal"),
+    "small-32": (3, 32, 32, "normal"),
+    "ragged-36x68": (2, 36, 68, "normal"),
+    "ties-at-half": (4, 64, 64, "ties"),
+    "clamped": (4, 64, 64, "clamped"),
+    "largest-sums": (4, 64, 64, "largest"),
+    "floor-rows": (4, 64, 64, "floor"),
+}
+
+
+def _stem_case(rng, dev, n, h, w, kind):
+    """A ``QResNet50`` that carries only a stem, and (N, H, W, 3) float32
+    tiles, for one of ``STEM_CASES``:
+      normal   tiles N(0, 1), input scale 4/127, random int8 weights;
+      ties     input scale 2^-5 and tiles (k + 1/2) * scale, so that every
+               quotient lies exactly half-way (round half to even);
+      clamped  tiles up to 300 * scale, so that most codes clamp to +-127;
+      largest  weights all +127 (even channels) or -127 (odd), tiles of
+               300 * scale in half the images: sums up to 192 * 127^2;
+      floor    the lower half of each tile zero and z = -140 for every
+               channel, so that its pooled rows are all -128.
+    The fma constants spread the other codes over the int8 range."""
+    from transmil_deepgraft_tpu_torch.models.resnet_int8 import QResNet50
+
+    s = np.float32(2.0 ** -5 if kind == "ties" else 4.0 / 127)
+    x = rng.standard_normal((n, h, w, 3)).astype(np.float32)
+    wq = rng.integers(-127, 128, (4, 4, 12, 64), dtype=np.int8)
+    if kind == "ties":
+        x = ((rng.integers(-131, 131, x.shape) + 0.5) * s).astype(np.float32)
+        assert np.all(x / s - np.floor(x / s) == 0.5)
+    elif kind in ("clamped", "largest"):
+        x = (rng.uniform(-300.0, 300.0, x.shape) * s).astype(np.float32)
+    if kind == "largest":
+        x[::2] = 300.0 * s
+        wq = np.broadcast_to(np.where(np.arange(64) % 2, -127, 127), wq.shape).astype(np.int8)
+    elif kind == "floor":
+        x[:, h // 2:] = 0.0
+    codes = np.clip(np.round(x / s), -127, 127)
+    if kind == "largest":  # the largest sum lands near the clip
+        spread = 192.0 * 127 ** 2
+    else:  # the sums' rms
+        spread = np.sqrt(192.0 * np.mean(codes ** 2) * np.mean(wq.astype(np.float64) ** 2))
+    m = rng.uniform(0.5, 1.5, 64) * {"largest": 100.0, "floor": 150.0}.get(kind, 60.0) / spread
+    z = np.full(64, -140.0) if kind == "floor" else rng.uniform(-30.0, 30.0, 64)
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.array(a, dtype, order="C")).to(dev)
+
+    q = QResNet50(stem_w=t(wq, np.int8), stem_m=t(m), stem_z=t(z), input_scale=t(s),
+                  blocks=(), final_scale=t(1.0), truncate_after=4, feature_dim=2048)
+    return q, t(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STEM_CASES))
+def test_stem_kernel_matches_plain_stem(cuda_device, case):
+    """The stem kernel (``_stem_q`` on a CUDA tensor) against the torch-op
+    stem on the same tensors: every int8 code equal, at extraction's 100 and
+    the slide's 128 tiles of 224x224, one tile, small and ragged tiles
+    (pooled sizes 8x8 and 9x17: partial blocks), quotients exactly half-way,
+    inputs far past the clamp, the largest sums, and pooled rows all at the
+    -128 floor. One launch, counted in ``LAUNCHES`` and, under a profiler,
+    as ``backbone.stem_kernel`` inside one ``backbone.stem`` span."""
+    from transmil_deepgraft_tpu_torch.models import resnet_int8 as qr
+    from transmil_deepgraft_tpu_torch.utils import profiling
+
+    n, h, w, kind = STEM_CASES[case]
+    rng = np.random.default_rng(list(STEM_CASES).index(case))
+    q, x = _stem_case(rng, cuda_device, n, h, w, kind)
+    qk.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = qr._stem_q(q, x)
+    seen = profiling.snapshot()
+    torch.cuda.synchronize()
+    want = qk.stem_reference(x, q)
+    assert got.shape == want.shape == (n, h // 4, w // 4, 64)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert int((got != want).sum()) == 0
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 0, "qstem_run": 1}
+    assert seen["counters"] == {"backbone.stem_kernel": 1}
+    assert seen["spans"]["backbone.stem"]["calls"] == 1
+    if kind == "floor":  # pooled rows past h/8 + 2 read only zero tiles
+        assert bool((want[:, h // 8 + 2:] == -128).all())
+        assert torch.unique(want[:, :h // 8]).numel() > 100
+    else:  # the check sees much of the code range
+        assert torch.unique(want).numel() > 120
 
 
 @pytest.mark.cuda

@@ -77,6 +77,39 @@ def test_fused_segments_check_tiles_per_step(net):
         P.apply_qresnet50_fused(prep, torch.from_numpy(x), t_cfg=(2, 1, 1, 1, 1, 1, 1))
 
 
+@pytest.mark.parametrize("shape,dtype", [((2, 64, 64, 3), torch.float64),
+                                         ((2, 62, 64, 3), torch.float32),
+                                         ((2, 64, 66, 3), torch.float32),
+                                         ((2, 64, 64, 4), torch.float32)],
+                         ids=["float64", "height-62", "width-66", "four-channels"])
+def test_stem_wrapper_refuses_what_the_kernel_does_not_take(net, shape, dtype):
+    """``ops/qstage_kernel.fused_stem`` checks its tiles before it picks a
+    route, so a CPU tensor is refused where a CUDA one would be."""
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+
+    q = qresnet_from_jax(net[3])
+    with pytest.raises(ValueError, match="stem takes"):
+        qk.fused_stem(torch.zeros(shape, dtype=dtype), q)
+
+
+def test_stem_wrapper_takes_the_plain_route_on_the_cpu(net):
+    """On a CPU tensor ``_stem_q`` is the torch-op stem, launches nothing and
+    counts no kernel, inside its ``backbone.stem`` span."""
+    from transmil_deepgraft_tpu_torch.ops import qstage_kernel as qk
+    from transmil_deepgraft_tpu_torch.utils import profiling
+
+    _, _, x, q, _ = net
+    q, x = qresnet_from_jax(q), torch.from_numpy(x)
+    qk.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = P._stem_q(q, x)
+    seen = profiling.snapshot()
+    assert torch.equal(got, P._plain_stem(q, x))
+    assert got.shape == (3, SIZE // 4, SIZE // 4, 64) and got.dtype == torch.int8
+    assert qk.LAUNCHES == {"qstage_run": 0, "qentry_run": 0, "qstem_run": 0}
+    assert seen["counters"] == {} and seen["spans"]["backbone.stem"]["calls"] == 1
+
+
 def test_truncated_baseline_matches_jax(net):
     """truncate_after=3 (the CLAM baseline, 1024-d)."""
     v, calib, x, _, _ = net

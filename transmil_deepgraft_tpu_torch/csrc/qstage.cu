@@ -8,6 +8,10 @@
 //   qentry_run <- _entry_kernel: one stride-2 stage-entry bottleneck,
 //                 1x1 at full resolution, 3x3/s2 over a -128 pad,
 //                 1x1 + the 1x1/s2 downsample projection.
+// and adds one that replaces no TPU kernel (JAX runs the stem as XLA ops):
+//   qstem_run: the stem, float32 tiles -> input quantize -> space-to-depth
+//              4x4 int8 conv -> requant -> 3x3/2 max-pool, in one launch
+//              (stem_kernel, at the end of this file).
 //
 // Both launchers run one kernel, conv_kernel, three times a bottleneck: conv1,
 // conv2, and conv3 with the identity or the downsample in the same launch. It
@@ -675,6 +679,239 @@ int qentry_run(const int8_t* x, int8_t* out, uint8_t* h1, int8_t* h2, const QBlo
   cudaError_t err = conv12<2>(b, x, h1, h2, n, h, w, stream);
   if (err != cudaSuccess) return err;
   return conv3<2>(b, x, h2, out, n, h, w, stream);
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ stem
+//
+// stem_kernel: models/resnet_int8._plain_stem in one launch, from the float32
+// tiles (n, h, w, 3) to the pooled int8 codes (n, h/4, w/4, 64) that B7
+// takes. Bit for bit the plain route's arithmetic:
+//   x_q = clip(rint(x / input_scale), -127, 127)   (IEEE divide, half to even)
+//   the 7x7/s2 conv as a 4x4/s1 conv over the space-to-depth-by-2 input
+//     (12 channels (di, dj, ci), zero pad (2, 1)), exact int32 sums
+//   q = clip(rint(fma(float(acc), m, z)), -128, 127)   (C4's contraction)
+//   the 3x3/2 max-pool over a -128 pad of 1
+// What bounds it on an H100: a 128-tile chunk of 224 x 224 reads 77 MB of
+// float32 and writes 25.7 MB of codes (31 us at 3.35 TB/s); its products are
+// 52.6 G int8 operations with the 12 channels padded to 16 (27 us at 1,979
+// TOP/s, 48 us at the ~1,087 that mma.sync reaches). The torch-op route
+// moves ~2.5 GB of float64 im2col a chunk instead.
+// What the design does: a block owns 14 x 14 pooled positions of one tile
+// and computes the 29 x 29 conv positions they pool over (one row and one
+// column of halo, recomputed by the neighbour too); it quantizes the 32 x 32
+// space-to-depth positions that those read into shared memory, 16 bytes a
+// position (12 codes, 4 zeros), so that a conv position's 4x4 window is four
+// runs of 64 contiguous bytes and nothing is materialised in device memory.
+// The products are mma.sync m16n8k32 s8 (M = conv positions, N = 64, K =
+// (ki, kj, c) = 256): a warp owns 32 output channels, whose weights stay in
+// its registers, and walks the block's 16-row tiles; the K order inside a
+// 64-byte run is permuted alike in A and B so that a thread loads its A
+// fragments 16 bytes at a time. The requantized codes stay in shared memory
+// for the pool, which stores 16-byte vectors of channels.
+
+namespace {
+
+namespace stem {
+constexpr int P = 14, Q = 14;                // pooled rows and columns a block
+constexpr int R = 2 * P + 1, C = 2 * Q + 1;  // conv rows and columns a block (+1 halo each)
+constexpr int XR = R + 3, XC = C + 3;        // space-to-depth positions they read
+constexpr int MT = (R * C + 15) / 16;        // 16-row tiles of conv positions
+constexpr int CV_PITCH = 80;   // bytes a conv position's 64 codes take (conflict-free stores)
+constexpr int WT_PITCH = 272;  // bytes a weight row of K = 256 takes
+constexpr int X_BYTES = XR * XC * 16;
+constexpr int CV_BYTES = MT * 16 * CV_PITCH;
+constexpr int SMEM = X_BYTES + CV_BYTES + 2 * 64 * 4;
+static_assert(64 * WT_PITCH <= CV_BYTES, "the weights are staged where the codes go");
+static_assert(X_BYTES % 16 == 0 && CV_BYTES % 16 == 0, "alignment");
+}  // namespace stem
+
+// D (16 x 8, int32) += A (16 x 32, s8) * B (32 x 8, s8). A: a0/a2 row g,
+// a1/a3 row g + 8, bytes 4t..4t+3 (a0, a1) and 16+4t.. (a2, a3); B: b0 bytes
+// 4t.., b1 16+4t.. of column g; D: d0/d1 row g, columns 2t, 2t+1, d2/d3 row
+// g + 8 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// clip(rint(v / s), -127, 127) as a byte: __fdiv_rn is the IEEE divide.
+__device__ __forceinline__ uint32_t quantize(float v, float s) {
+  return (uint32_t)min(max(__float2int_rn(__fdiv_rn(v, s)), -127), 127) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return a | b << 8 | c << 16 | d << 24;
+}
+
+// Block b: tile b % tiles_x of tile row b / tiles_x % tiles_y of image
+// b / (tiles_x * tiles_y).
+__global__ void __launch_bounds__(THREADS, 2)
+    stem_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
+                const float* __restrict__ m, const float* __restrict__ z,
+                const float* __restrict__ scale, int8_t* __restrict__ out, int h, int w,
+                int tiles_y, int tiles_x) {
+  using namespace stem;
+  extern __shared__ __align__(16) uint8_t stem_smem[];
+  uint8_t* sx = stem_smem;              // (XR, XC, 16) input codes
+  uint8_t* scv = stem_smem + X_BYTES;   // the weights (64, WT_PITCH), then the codes (R * C, CV_PITCH)
+  float* smz = reinterpret_cast<float*>(scv + CV_BYTES);  // m[64], z[64]
+  const int tid = threadIdx.x;
+  const int tx = (int)blockIdx.x % tiles_x, ty = (int)blockIdx.x / tiles_x % tiles_y;
+  const int img = (int)blockIdx.x / tiles_x / tiles_y;
+  const int ph0 = ty * P, pw0 = tx * Q;  // the block's first pooled row and column
+  const int h2 = h / 2, w2 = w / 2;
+
+  // The weights (4, 4, 12, 64) HWIO as (n, k), k = (ki * 4 + kj) * 16 + c,
+  // zero at c = 12..15.
+  for (int i = tid; i < 64 * 16; i += THREADS)
+    *reinterpret_cast<uint32_t*>(scv + (i >> 4) * WT_PITCH + (i & 15) * 16 + 12) = 0u;
+  for (int i = tid; i < 16 * 12 * 64; i += THREADS) {
+    const int n = i & 63, kc = i >> 6, tap = kc / 12;
+    scv[n * WT_PITCH + tap * 16 + kc - tap * 12] = static_cast<uint8_t>(wq[i]);
+  }
+  if (tid < 64) {
+    smz[tid] = m[tid];
+    smz[64 + tid] = z[tid];
+  }
+
+  // Space-to-depth position (i, j) = image rows 2i, 2i+1 x columns 2j, 2j+1:
+  // 6 contiguous floats a row, in the (di, dj, ci) order of the 12 channels.
+  // Conv position (oh, ow) reads positions oh-2..oh+1 x ow-2..ow+1 (the
+  // (2, 1) pad is the zeros outside the image); the block's conv positions
+  // start at (2 ph0 - 1, 2 pw0 - 1), so its positions at (2 ph0 - 3, 2 pw0 - 3).
+  const float s = *scale;
+  const float* xi = x + (size_t)img * h * w * 3;
+  for (int p = tid; p < XR * XC; p += THREADS) {
+    const int xr = p / XC, xc = p - xr * XC;
+    const int i = 2 * ph0 - 3 + xr, j = 2 * pw0 - 3 + xc;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i >= 0 && i < h2 && j >= 0 && j < w2) {
+      const float* r0 = xi + ((size_t)2 * i * w + 2 * j) * 3;
+      const float* r1 = r0 + (size_t)w * 3;
+      v.x = pack4(quantize(r0[0], s), quantize(r0[1], s), quantize(r0[2], s), quantize(r0[3], s));
+      v.y = pack4(quantize(r0[4], s), quantize(r0[5], s), quantize(r1[0], s), quantize(r1[1], s));
+      v.z = pack4(quantize(r1[2], s), quantize(r1[3], s), quantize(r1[4], s), quantize(r1[5], s));
+    }
+    *reinterpret_cast<uint4*>(sx + 16 * p) = v;
+  }
+  __syncthreads();
+
+  // Warp w multiplies into channels n0..n0+31 (n0 = 32 (w % 2)). Its B
+  // fragments for (N tile j, ki) are the 16 bytes k = 64 ki + 16 t.. of
+  // column n0 + 8 j + g: words 0, 1 for the first k32 step, 2, 3 for the
+  // second. A takes the same permutation: a row's 16 bytes at 64 ki + 16 t
+  // give (a0, a2) of the first step and (a0, a2) of the second.
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int n0 = (warp & 1) * 32;
+  uint32_t bf[4][4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int ki = 0; ki < 4; ++ki) {
+      const uint4 t = *reinterpret_cast<const uint4*>(scv + (n0 + 8 * j + g) * WT_PITCH + 64 * ki +
+                                                      16 * tg);
+      bf[j][ki][0] = t.x;
+      bf[j][ki][1] = t.y;
+      bf[j][ki][2] = t.z;
+      bf[j][ki][3] = t.w;
+    }
+  }
+  __syncthreads();  // the codes overwrite the weights
+
+  // Conv position r * C + c (rows past R * C repeat the last and are never
+  // pooled): its window's run ki is the 64 bytes at space-to-depth (r + ki, c).
+  for (int t = warp >> 1; t < MT; t += THREADS / 64) {
+    const int m_lo = min(16 * t + g, R * C - 1), m_hi = min(16 * t + g + 8, R * C - 1);
+    const uint8_t* a_lo = sx + ((m_lo / C) * XC + m_lo % C) * 16 + 16 * tg;
+    const uint8_t* a_hi = sx + ((m_hi / C) * XC + m_hi % C) * 16 + 16 * tg;
+    int acc[4][4] = {};
+#pragma unroll
+    for (int ki = 0; ki < 4; ++ki) {
+      const uint4 lo = *reinterpret_cast<const uint4*>(a_lo + ki * XC * 16);
+      const uint4 hi = *reinterpret_cast<const uint4*>(a_hi + ki * XC * 16);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_s8(acc[j], lo.x, hi.x, lo.y, hi.y, bf[j][ki][0], bf[j][ki][1]);
+        mma_s8(acc[j], lo.z, hi.z, lo.w, hi.w, bf[j][ki][2], bf[j][ki][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + 8 * j + 2 * tg;
+      const float2 mm = *reinterpret_cast<const float2*>(smz + col);
+      const float2 zz = *reinterpret_cast<const float2*>(smz + 64 + col);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const uint32_t q0 = clip_round(__fmaf_rn(__int2float_rn(acc[j][2 * hf]), mm.x, zz.x));
+        const uint32_t q1 = clip_round(__fmaf_rn(__int2float_rn(acc[j][2 * hf + 1]), mm.y, zz.y));
+        *reinterpret_cast<uint16_t*>(scv + (16 * t + g + 8 * hf) * CV_PITCH + col) =
+            (uint16_t)(q0 | q1 << 8);
+      }
+    }
+  }
+  __syncthreads();
+
+  // The pool: pooled (ph, pw) is the max over conv rows 2ph-1..2ph+1 and
+  // columns 2pw-1..2pw+1; row or column -1 is the -128 pad, which no code is
+  // below, so it is skipped. A thread takes 16 channels of a pooled position.
+  const int h4 = h / 4, w4 = w / 4;
+  for (int i = tid; i < P * Q * 4; i += THREADS) {
+    const int pr = i / (Q * 4), pc = i / 4 % Q, cg = i & 3;
+    const int ph = ph0 + pr, pw = pw0 + pc;
+    if (ph >= h4 || pw >= w4) continue;
+    uint4 mx = make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int r = 2 * pr + d;
+      if (ph0 == 0 && r == 0) continue;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const int c = 2 * pc + e;
+        if (pw0 == 0 && c == 0) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(scv + (r * C + c) * CV_PITCH + 16 * cg);
+        mx.x = __vmaxs4(mx.x, v.x);
+        mx.y = __vmaxs4(mx.y, v.y);
+        mx.z = __vmaxs4(mx.z, v.z);
+        mx.w = __vmaxs4(mx.w, v.w);
+      }
+    }
+    *reinterpret_cast<uint4*>(out + (((size_t)img * h4 + ph) * w4 + pw) * 64 + 16 * cg) = mx;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The stem on x (n, h, w, 3) float32, h and w divisible by 4: w (4, 4, 12,
+// 64) int8 HWIO, m and z (64,) float32, scale () float32, all on the device
+// -> out (n, h/4, w/4, 64) int8.
+int qstem_run(const float* x, const int8_t* w, const float* m, const float* z,
+              const float* scale, int8_t* out, int n, int h, int wd, void* stream_ptr) {
+  using namespace stem;
+  if (n < 1 || h < 4 || wd < 4 || h % 4 || wd % 4 || (long long)h * wd * 3 >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const long long tiles_y = (h / 4 + P - 1) / P, tiles_x = (wd / 4 + Q - 1) / Q;
+  const long long grid = n * tiles_y * tiles_x;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  static unsigned long long configured = 0;  // bit d: the attribute is set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(configured >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << dev;
+  }
+  stem_kernel<<<(unsigned)grid, THREADS, SMEM, (cudaStream_t)stream_ptr>>>(
+      x, w, m, z, scale, out, h, wd, (int)tiles_y, (int)tiles_x);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

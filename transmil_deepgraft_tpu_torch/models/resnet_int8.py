@@ -13,11 +13,12 @@ Everything stays in the quantized domain, as in the JAX package:
 - 3x3 convs pad with -128, the code of x = 0.
 - The stem is a space-to-depth 4x4 int8 conv on symmetric input codes.
 
-On a CUDA device the bottleneck stages run as the hand-written kernels of
-``ops/qstage_kernel.py`` (``csrc/qstage.cu``): ``apply_qresnet50`` runs stage 1
-as one stage-kernel launch and each later stage as one entry-kernel launch plus
-one stage-kernel launch. The stem, the max-pool and the average pool are torch
-ops, as they are XLA ops in JAX.
+On a CUDA device the stem and the bottleneck stages run as the hand-written
+kernels of ``ops/qstage_kernel.py`` (``csrc/qstage.cu``): ``_stem_q`` runs the
+input quantization, the stem conv, its requant and the 3x3/2 max-pool as one
+stem-kernel launch (XLA ops in JAX), ``apply_qresnet50`` runs stage 1 as one
+stage-kernel launch and each later stage as one entry-kernel launch plus one
+stage-kernel launch. The average pool is torch ops.
 
 Numerics. The plain path repeats XLA:CPU's arithmetic bit for bit: integer
 convolutions run as float64 im2col matmuls (exact below 2**53), and the
@@ -372,20 +373,30 @@ def _plain_blocks(x: torch.Tensor, blocks, strides) -> torch.Tensor:
     return x
 
 
+def _plain_stem(q: QResNet50, tiles: torch.Tensor) -> torch.Tensor:
+    """The stem as torch ops: input quantization, space-to-depth stem conv,
+    requant, 3x3/2 max-pool with a -128 floor: (N, H, W, 3) float -> (N, H/4,
+    W/4, 64) int8 codes."""
+    n, hh, ww, _ = tiles.shape
+    x_q = torch.clamp(torch.round(tiles.float() / q.input_scale), -127, 127).to(torch.int8)
+    # space-to-depth by 2: (N, H, W, 3) -> (N, H/2, W/2, 12), channel (di,dj,ci)
+    x_q = x_q.reshape(n, hh // 2, 2, ww // 2, 2, 3)
+    x_q = x_q.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 12)
+    x_q = F.pad(x_q, (0, 0, 2, 1, 2, 1))  # zero is exact: symmetric input codes
+    stem_q = _rq(_conv_q(x_q, q.stem_w), q.stem_m, q.stem_z)
+    pooled = F.max_pool2d(
+        F.pad(stem_q.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), value=-128.0), 3, stride=2)
+    return pooled.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+
+
 def _stem_q(q: QResNet50, tiles: torch.Tensor) -> torch.Tensor:
-    """Input quantization, space-to-depth stem conv, requant, 3x3/2 max-pool
-    with a -128 floor: (N, H, W, 3) float -> (N, H/4, W/4, 64) int8 codes."""
+    """The stem of every int8 route: (N, H, W, 3) float -> (N, H/4, W/4, 64)
+    int8 codes, as float32 through ``ops/qstage_kernel.fused_stem`` (one
+    kernel launch on a CUDA tensor, :func:`_plain_stem` on a CPU one)."""
+    from transmil_deepgraft_tpu_torch.ops.qstage_kernel import fused_stem
+
     with span("backbone.stem"):
-        n, hh, ww, _ = tiles.shape
-        x_q = torch.clamp(torch.round(tiles.float() / q.input_scale), -127, 127).to(torch.int8)
-        # space-to-depth by 2: (N, H, W, 3) -> (N, H/2, W/2, 12), channel (di,dj,ci)
-        x_q = x_q.reshape(n, hh // 2, 2, ww // 2, 2, 3)
-        x_q = x_q.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 12)
-        x_q = F.pad(x_q, (0, 0, 2, 1, 2, 1))  # zero is exact: symmetric input codes
-        stem_q = _rq(_conv_q(x_q, q.stem_w), q.stem_m, q.stem_z)
-        pooled = F.max_pool2d(
-            F.pad(stem_q.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), value=-128.0), 3, stride=2)
-        return pooled.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+        return fused_stem(tiles.float().contiguous(), q)
 
 
 def _pool(q: QResNet50, out_q: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Fused int8 bottleneck stages of the quantized ResNet50 (port of
-``ops/pallas/qstage_kernel.py``).
+``ops/pallas/qstage_kernel.py``), and its stem.
 
 Two hand-written CUDA kernels (``csrc/qstage.cu``) replace the two Pallas TPU
-kernels:
+kernels, and a third runs the stem, which JAX leaves to XLA:
 
   qstage_run (B7, replaces ``_stage_kernel``): a run of stride-1 bottlenecks,
       1x1 -> requant -> 3x3 over a -128 pad -> requant -> 1x1 + (identity fma
@@ -10,9 +10,15 @@ kernels:
   qentry_run (B8, replaces ``_entry_kernel``): one stride-2 stage-entry
       bottleneck, 1x1 at full resolution, 3x3/s2 over a -128 pad, 1x1 +
       the 1x1/s2 downsample projection.
+  qstem_run (``stem_kernel``): the stem of ``models/resnet_int8._stem_q``,
+      float32 tiles -> input quantize -> space-to-depth 4x4 int8 conv ->
+      requant -> 3x3/2 max-pool over a -128 pad, in one launch and without
+      a device-memory intermediate; the codes equal the torch-op route's
+      (``_plain_stem``) bit for bit.
 
-Each launcher runs one int8 implicit-GEMM kernel three times a bottleneck
-(conv1, conv2, conv3 with the identity or the downsample in the same launch):
+The two stage launchers run one int8 implicit-GEMM kernel three times a
+bottleneck (conv1, conv2, conv3 with the identity or the downsample in the
+same launch):
 ``wgmma`` s8 with int32 accumulation from a ``cp.async`` ring in shared memory,
 with the folded-fma epilogue of ``models/resnet_int8`` written so that it
 rounds exactly where XLA:CPU does. conv1 stores its codes as u8 = code + 128,
@@ -24,11 +30,12 @@ A block's operands are prepared once (:func:`_prepare_block`: weights as
 (Cout, K) with K contiguous, scales stacked, column sums) and kept while the
 block's tensors live; ``PREPARES`` counts the preparations.
 
-Each wrapper (:func:`fused_bottleneck_stage`, :func:`fused_entry_block`)
-launches its kernel on a CUDA tensor, uses its plain version
-(:func:`stage_reference`, :func:`entry_reference`) on a CPU tensor, and raises
-on anything else. ``tiles_per_step`` (the TPU grid step) is only checked for
-dividing the batch: the CUDA kernels tile rows, not images.
+Each wrapper (:func:`fused_bottleneck_stage`, :func:`fused_entry_block`,
+:func:`fused_stem`) launches its kernel on a CUDA tensor, uses its plain
+version (:func:`stage_reference`, :func:`entry_reference`,
+:func:`stem_reference`) on a CPU tensor, and raises on anything else.
+``tiles_per_step`` (the TPU grid step) is only checked for dividing the
+batch: the CUDA kernels tile rows, not images.
 """
 
 from __future__ import annotations
@@ -41,11 +48,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from transmil_deepgraft_tpu_torch.models.resnet_int8 import QBlock, _plain_blocks
+from transmil_deepgraft_tpu_torch.models.resnet_int8 import QBlock, _plain_blocks, _plain_stem
 from transmil_deepgraft_tpu_torch.ops import _build
+from transmil_deepgraft_tpu_torch.utils.profiling import count
 
 # Launches of each kernel since the last reset_launch_counts().
-LAUNCHES = {"qstage_run": 0, "qentry_run": 0}
+LAUNCHES = {"qstage_run": 0, "qentry_run": 0, "qstem_run": 0}
 # Blocks prepared for the kernels (_prepare_block) since import.
 PREPARES = {"blocks": 0}
 CHANNEL_MULTIPLE = 64  # the kernels' K and N tiles
@@ -80,6 +88,8 @@ def _library() -> ctypes.CDLL:
     lib.qstage_run.restype = _I
     lib.qentry_run.argtypes = [_P] * 4 + [ctypes.POINTER(_QBlockArgs), _I, _I, _I, _P]
     lib.qentry_run.restype = _I
+    lib.qstem_run.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.qstem_run.restype = _I
     return lib
 
 
@@ -309,6 +319,48 @@ def fused_entry_block(
     _call("qentry_run", dev, x_q.data_ptr(), out.data_ptr(), h1.data_ptr(), h2.data_ptr(),
           ctypes.byref(a), n, h, w)
     LAUNCHES["qentry_run"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ the stem
+
+def stem_reference(tiles: torch.Tensor, q) -> torch.Tensor:
+    """Plain version of the stem kernel: the stem as torch ops."""
+    return _plain_stem(q, tiles)
+
+
+def _check_tiles(tiles: torch.Tensor) -> None:
+    if tiles.dim() != 4 or tiles.dtype != torch.float32 or tiles.shape[-1] != 3:
+        raise ValueError(f"the stem takes (N, H, W, 3) float32 tiles, got {tiles.dtype} "
+                         f"{tuple(tiles.shape)}")
+    h, w = tiles.shape[1:3]
+    if h % 4 or w % 4:
+        raise ValueError(f"the stem takes H and W divisible by 4, got {h}x{w}")
+    if not tiles.is_contiguous():
+        raise ValueError("the stem takes contiguous tiles")
+
+
+def fused_stem(tiles: torch.Tensor, q) -> torch.Tensor:
+    """The stem of the int8 ResNet50 ``q`` (a ``QResNet50``): (N, H, W, 3)
+    float32 tiles, H and W divisible by 4 -> (N, H/4, W/4, 64) int8 codes
+    (zero point -128)."""
+    _check_tiles(tiles)
+    if _on_cpu(tiles):
+        return stem_reference(tiles, q)
+    dev = tiles.device
+    for name, t, dtype, shape in (("stem_w", q.stem_w, torch.int8, (4, 4, 12, 64)),
+                                  ("stem_m", q.stem_m, torch.float32, (64,)),
+                                  ("stem_z", q.stem_z, torch.float32, (64,)),
+                                  ("input_scale", q.input_scale, torch.float32, ())):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    n, h, w, _ = tiles.shape
+    out = torch.empty((n, h // 4, w // 4, 64), dtype=torch.int8, device=dev)
+    _call("qstem_run", dev, tiles.data_ptr(), q.stem_w.data_ptr(), q.stem_m.data_ptr(),
+          q.stem_z.data_ptr(), q.input_scale.data_ptr(), out.data_ptr(), n, h, w)
+    LAUNCHES["qstem_run"] += 1
+    count("backbone.stem_kernel")
     return out
 
 
