@@ -10,8 +10,10 @@ into a native bag store (``<out_dir>/cohort.bags``). Prints one JSON line,
 
 Runs on the card unless ``--device cpu``. ``--backbone`` is any tile
 backbone of ``models/backbones`` (retccl, resnet50, resnet18, simple,
-efficientnet, vit, dino); ``--ckpt`` converts a .pth in the reference's
-names for it. ``--quantize int8`` / ``int8_fused`` run the int8 ResNet50
+efficientnet, vit, dino, uni2_h); ``--ckpt`` converts a .pth in the
+reference's names for it (for uni2_h, timm's: MahmoodLab/UNI2-h's
+``pytorch_model.bin``, not in the repository; it runs in float32 here, the
+bf16 route is ``cli.infer``'s). ``--quantize int8`` / ``int8_fused`` run the int8 ResNet50
 (the ResNet50 family only, as in JAX), whose stages are the int8 stage and
 entry kernels on the card.
 """
@@ -29,7 +31,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", required=True)
     p.add_argument("--backbone", default="retccl",
                    choices=["retccl", "resnet50", "resnet18", "simple", "efficientnet", "vit",
-                            "dino"])
+                            "dino", "uni2_h"])
     p.add_argument("--ckpt", default=None,
                    help="torch .pth/.ckpt to convert (e.g. retccl_best_ckpt.pth)")
     p.add_argument("--mode", default="test", help="label-JSON split to extract")

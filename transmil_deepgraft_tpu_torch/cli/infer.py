@@ -2,7 +2,9 @@
 ``python -m transmil_deepgraft_tpu_torch.cli.infer``.
 
 A folder of slide tile folders streams from disk through the int8 (or bf16)
-ResNet50 and a MIL head (``--model``: any ported head with attention scores)
+ResNet50, or with ``--backbone uni2_h`` the UNI2-h ViT-H/14 in bf16 (float32
+residual stream, LayerNorm and LayerScale; ``models/vit.uni2_h``), and a MIL
+head (``--model``: any ported head with attention scores)
 of ``inference.SlideInferencePipeline`` on the card (``--device cpu`` for
 the CPU) and writes each slide's probabilities plus its top-k tiles by
 attention. A coord-aware head (RoFormerMIL) gets the tiles' real (x-y)
@@ -10,7 +12,11 @@ coordinates from their file names, as in the JAX CLI.
 
 Checkpoints: torch state dicts (``.pth``/``.pt``, Lightning ``.ckpt``, the
 port's trainer checkpoints) converted by ``utils/torch_weights``, or flax
-msgpack variable trees.
+msgpack variable trees. UNI2-h's ``--backbone_ckpt`` is a state dict in
+timm's names (MahmoodLab/UNI2-h's ``pytorch_model.bin``, not in the
+repository: ``cls_token``, ``reg_token``, ``pos_embed``, ``patch_embed.proj``,
+``blocks.{i}.{norm1, attn.qkv, attn.proj, ls1.gamma, norm2, mlp.fc1,
+mlp.fc2, ls2.gamma}``, ``norm``); its head takes 1536-d features.
 
 ``--n_chips k`` embeds tile-parallel over k processes, one card each
 (``SlideInferencePipeline(mesh=)``). Outside a launcher the command starts
@@ -35,8 +41,11 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="slide inference (tiles -> probabilities)")
     p.add_argument("--tiles_root", required=True,
                    help="root holding <slide>/<tile_(x-y)>.jpg folders")
+    p.add_argument("--backbone", choices=["retccl", "uni2_h"], default="retccl",
+                   help="tile encoder: the RetCCL ResNet50 (int8 or bf16) or UNI2-h (bf16)")
     p.add_argument("--backbone_ckpt", required=True,
-                   help="ResNet50/RetCCL weights: flax msgpack or torch .pth")
+                   help="ResNet50/RetCCL weights: flax msgpack or torch .pth; uni2_h: a "
+                        "timm-named state dict (UNI2-h's pytorch_model.bin)")
     p.add_argument("--head_ckpt", required=True,
                    help="head weights: flax msgpack or torch .pth")
     p.add_argument("--model", default="TransMIL",
@@ -45,10 +54,13 @@ def make_parser() -> argparse.ArgumentParser:
                         "...)")
     p.add_argument("--n_classes", type=int, default=2,
                    help="the head's classes (the port reads them from the weights)")
-    p.add_argument("--in_features", type=int, default=2048)
+    p.add_argument("--in_features", type=int, default=None,
+                   help="the head's input width (default: the backbone's, 2048 or 1536)")
     p.add_argument("--out_features", type=int, default=512,
                    help="the head's width (the port reads it from the weights)")
-    p.add_argument("--quantize", choices=["bf16", "int8", "int8_fused"], default="int8")
+    p.add_argument("--quantize", choices=["bf16", "int8", "int8_fused"], default=None,
+                   help="the backbone's precision (default: int8 for retccl, bf16 for uni2_h, "
+                        "which takes bf16 alone)")
     p.add_argument("--chunk", type=int, default=128)
     p.add_argument("--tile_size", type=int, default=224)
     p.add_argument("--topk", type=int, default=10)
@@ -66,11 +78,20 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from transmil_deepgraft_tpu_torch.device import resolve_device
     from transmil_deepgraft_tpu_torch.inference import SlideInferencePipeline, decode_tile_paths
     from transmil_deepgraft_tpu_torch.models import MODEL_REGISTRY
+    from transmil_deepgraft_tpu_torch.models.backbones import BACKBONE_DIMS, uni2_h_from_timm
     from transmil_deepgraft_tpu_torch.serving import head_from_params
     from transmil_deepgraft_tpu_torch.utils.torch_weights import (
-        load_backbone_variables, load_head_params)
+        load_backbone_variables, load_head_params, load_torch_checkpoint)
 
     args = make_parser().parse_args(argv)
+    vit = args.backbone == "uni2_h"
+    if args.quantize is None:
+        args.quantize = "bf16" if vit else "int8"
+    if vit and args.quantize != "bf16":
+        raise SystemExit(f"--quantize {args.quantize} quantizes the ResNet50 family; "
+                         "--backbone uni2_h runs in bf16")
+    if args.in_features is None:
+        args.in_features = BACKBONE_DIMS[args.backbone]
     if args.model not in MODEL_REGISTRY:
         # JAX's create_model raises KeyError: the classic per-tile models are
         # not bag heads (ROADMAP C13), and neither package serves them
@@ -104,7 +125,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    bb_vars = load_backbone_variables(args.backbone_ckpt)
+    bb_vars = encoder = None
+    if vit:
+        encoder = uni2_h_from_timm(load_torch_checkpoint(args.backbone_ckpt))
+    else:
+        bb_vars = load_backbone_variables(args.backbone_ckpt)
     head = head_from_params(args.model,
                             load_head_params(args.head_ckpt, args.in_features, args.model),
                             args.in_features, device=device)
@@ -128,7 +153,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
                 calib = imagenet_normalize(
                     decode_tile_paths(tile_paths[:min(64, len(tile_paths))], args.tile_size))
             pipeline = SlideInferencePipeline(
-                bb_vars, head, calib_tiles=calib, chunk=args.chunk,
+                bb_vars, head, backbone=encoder, calib_tiles=calib, chunk=args.chunk,
                 fused_backbone=args.quantize == "int8_fused", device=device, mesh=mesh,
             )
         coords = None

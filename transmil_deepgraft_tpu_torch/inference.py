@@ -2,9 +2,10 @@
 ``inference.py``).
 
 Raw tiles stream through the int8 post-training-quantized ResNet50
-(``models/resnet_int8``) in fixed chunks, the features stay on the device,
-and the bag goes through the head (the port's TransMIL, whose TransLayers run
-the K1/K2 kernels at inference, or another ported head). A coord-aware head
+(``models/resnet_int8``), or a ViT tile encoder given as a module (UNI2-h,
+``models/vit``: bf16 on the card), in fixed chunks, the features stay on
+the device, and the bag goes through the head (the port's TransMIL, whose
+TransLayers run the K1/K2 kernels at inference, or another ported head). A coord-aware head
 (RoFormerMIL) gets the tiles' (N, 2) grid coordinates as its second
 argument, or its square-grid fallback when there are none; for the other
 heads ``coords`` are accepted and not used, as in the JAX package. On a
@@ -37,6 +38,7 @@ from torch import nn
 from transmil_deepgraft_tpu_torch.data.tiles import IMAGENET_MEAN, IMAGENET_STD, _load_tile
 from transmil_deepgraft_tpu_torch.device import resolve_device
 from transmil_deepgraft_tpu_torch.models import head_logits
+from transmil_deepgraft_tpu_torch.models.vit import VisionTransformer
 from transmil_deepgraft_tpu_torch.parallel.mesh import axis_rank, axis_size
 from transmil_deepgraft_tpu_torch.utils import profiling
 
@@ -120,6 +122,13 @@ class SlideInferencePipeline:
         layout (numpy leaves), e.g. converted from ``retccl_best_ckpt.pth``.
       head_model: the bag-level head, an ``nn.Module`` with its weights (a
         ported head); it is moved to the device and put in eval mode.
+      backbone: instead of ``backbone_variables``, a ViT tile encoder
+        (``models/vit.VisionTransformer``, e.g. ``models/backbones.
+        uni2_h_from_timm``) with its weights; it is moved to the device, put
+        in eval mode and, on CUDA, given bf16 matmuls (``cast_matmuls``:
+        float32 residual stream, LayerNorm and LayerScale). Its features
+        come back float32. It takes no ``calib_tiles`` or ``fused_backbone``
+        (int8 is the ResNet50 family's).
       calib_tiles: representative tiles for int8 activation calibration;
         None runs the backbone in bf16 instead.
       chunk: tile batch per backbone call.
@@ -138,9 +147,10 @@ class SlideInferencePipeline:
 
     def __init__(
         self,
-        backbone_variables: dict,
+        backbone_variables: Optional[dict],
         head_model: nn.Module,
         *,
+        backbone: Optional[nn.Module] = None,
         calib_tiles: Optional[np.ndarray] = None,
         truncate_after: int = 4,
         chunk: int = 128,
@@ -158,7 +168,10 @@ class SlideInferencePipeline:
         self._group = mesh.get_group(mesh_axis) if mesh is not None else None
         self.rank_chunk = chunk
         self.chunk = chunk * self._shards
-        if calib_tiles is not None:
+        self._vit = backbone is not None
+        if self._vit:
+            self._embed_core = self._vit_core(backbone, calib_tiles, fused_backbone)
+        elif calib_tiles is not None:
             from transmil_deepgraft_tpu_torch.models.resnet_int8 import (
                 apply_qresnet50,
                 apply_qresnet50_fused,
@@ -195,6 +208,20 @@ class SlideInferencePipeline:
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
+    def _vit_core(self, backbone: nn.Module, calib_tiles, fused_backbone: bool):
+        """The embed of a ViT module: bf16 matmuls on CUDA, float32 on the
+        CPU; float32 features."""
+        if not isinstance(backbone, VisionTransformer):
+            raise TypeError(f"backbone must be a models/vit.VisionTransformer, got "
+                            f"{type(backbone).__name__}")
+        if calib_tiles is not None or fused_backbone:
+            raise ValueError("int8 (calib_tiles, fused_backbone) quantizes the ResNet50 family; "
+                             "a ViT backbone runs in bf16")
+        model = backbone.to(self.device).eval()
+        if self.device.type == "cuda":
+            model.cast_matmuls(torch.bfloat16)
+        return lambda x: model(x).float()
+
     def _embed_chunk(self, batch: np.ndarray) -> torch.Tensor:
         """One chunk of ``self.chunk`` tiles -> its (chunk, D) features; with
         a mesh this process embeds its shard and the shards are gathered."""
@@ -218,7 +245,11 @@ class SlideInferencePipeline:
 
     def embed_device(self, tiles: np.ndarray) -> torch.Tensor:
         """Chunked tile embedding -> (N, D) float32 features left on the
-        device, for the head to consume without a round trip."""
+        device, for the head to consume without a round trip. On the ViT
+        route the ragged last chunk's zero tiles count in
+        ``backbone.vit_pad_tiles`` while a profiler runs."""
+        if self._vit and len(tiles) % self.chunk:
+            profiling.count("backbone.vit_pad_tiles", self.chunk - len(tiles) % self.chunk)
         return chunked_device_embed(self._embed_chunk, tiles, self.chunk)
 
     def embed_paths_device(self, paths, *, tile_size: int = 224) -> torch.Tensor:

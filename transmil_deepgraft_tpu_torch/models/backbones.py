@@ -6,7 +6,9 @@ The reference's backbone selection (``code/models/model_interface.py:223-281``):
 ``out_features``), 'simple' (the Ilse CNN -> 1024-d), 'vit'/'dino' (ViT-B/16
 -> 768-d, ``models/vit.py``), 'inception' (InceptionV3 -> 2048-d, the
 classic zoo's, ``models/inception.py``) and 'efficientnet' (EfficientNet-B0
-+ Linear(1280, ``out_features``) + GELU, ``models/efficientnet.py``).
++ Linear(1280, ``out_features``) + GELU, ``models/efficientnet.py``). The
+port adds 'uni2_h' (UNI2-h, ViT-H/14 with registers -> 1536-d,
+``models/vit.uni2_h``), which neither the reference nor JAX has.
 
 :class:`ImageMILModel` is the reference's ``ModelInterface.forward`` reshape
 path (``model_interface.py:297-317``): the tiles of a batch of bags stream
@@ -31,8 +33,9 @@ from transmil_deepgraft_tpu_torch.models.resnet import (
     resnet50_baseline,
     retccl_resnet50,
 )
-from transmil_deepgraft_tpu_torch.models.vit import vit_base
+from transmil_deepgraft_tpu_torch.models.vit import VisionTransformer, uni2_h, vit_base
 from transmil_deepgraft_tpu_torch.utils.jax_params import backbone_state_dict_from_jax
+from transmil_deepgraft_tpu_torch.utils.torch_weights import convert_timm_vit_state_dict
 
 BACKBONE_DIMS = {
     "retccl": 2048,
@@ -41,6 +44,7 @@ BACKBONE_DIMS = {
     "simple": 1024,
     "vit": 768,
     "dino": 768,
+    "uni2_h": 1536,
     "efficientnet": 1280,
     "inception": 2048,
 }
@@ -96,6 +100,8 @@ def create_backbone(name: str, out_features: int = 512) -> tuple[Optional[nn.Mod
         return SimpleCNN(), 1024
     if name in ("vit", "dino"):
         return vit_base(), 768
+    if name == "uni2_h":
+        return uni2_h(), 1536
     if name == "inception":  # the classic zoo's (ref model_interface_classic.py:198-204)
         return inception_v3(), 2048
     if name == "efficientnet":  # ref model_interface.py:260-267
@@ -120,6 +126,17 @@ def load_backbone_variables(backbone: nn.Module, variables: dict) -> None:
                          f"{tuple(given[misfit[0]].shape)}, the backbone's "
                          f"{tuple(own[misfit[0]].shape)} (ROADMAP C14 for efficientnet)")
     backbone.load_state_dict(given)
+
+
+def uni2_h_from_timm(state_dict) -> VisionTransformer:
+    """UNI2-h (``models/vit.uni2_h``, float32 on the CPU) with the weights of
+    a timm-named state dict (MahmoodLab/UNI2-h's ``pytorch_model.bin``; not
+    in the repository), converted by ``utils/torch_weights.
+    convert_timm_vit_state_dict``, which raises on a missing or misshaped
+    key."""
+    model = uni2_h()
+    load_backbone_variables(model, convert_timm_vit_state_dict(state_dict))
+    return model
 
 
 class ImageMILModel(nn.Module):
@@ -177,4 +194,4 @@ class ImageMILModel(nn.Module):
 
 
 __all__ = ["BACKBONE_DIMS", "ImageMILModel", "ProjectedBackbone", "ResNet", "SimpleCNN",
-           "create_backbone", "load_backbone_variables"]
+           "create_backbone", "load_backbone_variables", "uni2_h_from_timm"]

@@ -1,8 +1,8 @@
 """Torch state dicts -> flax-layout parameter trees (the port's copy of the
 TransMIL, ResNet, EfficientNet, ViT, Inception, AttMIL, TransformerMIL,
 Chowder, MONAI MIL, CLAM, DTFD, MDMIL and CTMIL converters of
-``utils/torch_weights.py``, and a RoFormerMIL one of its own; the other
-ported heads read their carry-over table).
+``utils/torch_weights.py``, and a RoFormerMIL and a timm ViT (UNI2-h) one
+of its own; the other ported heads read their carry-over table).
 
 The reference's checkpoints (``retccl_best_ckpt.pth``, torchvision ResNets,
 TransMIL Lightning checkpoints, the port's own trainer checkpoints, which use
@@ -288,6 +288,61 @@ def convert_vit_state_dict(state_dict: Mapping[str, Any]) -> dict:
     return {"params": p}
 
 
+def convert_timm_vit_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """A timm ViT with register tokens, LayerScale and no class position
+    embedding (UNI2-h's ``pytorch_model.bin``: ``cls_token`` (1, 1, D),
+    ``reg_token`` (1, R, D), ``pos_embed`` (1, gh * gw, D),
+    ``patch_embed.proj``, ``blocks.{i}.{norm1, attn.qkv, attn.proj, ls1.gamma,
+    norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``) -> flax-layout
+    ``{'params'}`` of ``models/vit.VisionTransformer`` built with the same
+    options (``models/vit.uni2_h``). ``mlp.fc1`` (H, D) is the packed
+    SwiGLU's (gate rows first) and ``mlp.fc2`` (D, H / 2). Raises ValueError
+    naming the first key that is missing or whose shape does not fit the
+    width ``cls_token`` gives."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+
+    def get(key: str, *shape) -> np.ndarray:
+        """``key`` as numpy; ``shape`` entries of None are free."""
+        if key not in sd:
+            raise ValueError(f"the checkpoint has no {key!r} (timm ViT names expected)")
+        v = _np(sd[key])
+        if v.ndim != len(shape) or any(s is not None and s != d for s, d in zip(shape, v.shape)):
+            want = tuple("*" if s is None else s for s in shape)
+            raise ValueError(f"{key!r} is {tuple(v.shape)}, expected {want}")
+        return v
+
+    dim = get("cls_token", 1, 1, None).shape[-1]
+
+    def lin(src: str, n_out, n_in) -> dict:
+        kernel = get(f"{src}.weight", n_out, n_in)
+        return {"kernel": kernel.T, "bias": get(f"{src}.bias", kernel.shape[0])}
+
+    def ln(src: str) -> dict:
+        return {"scale": get(f"{src}.weight", dim), "bias": get(f"{src}.bias", dim)}
+
+    p: dict = {
+        "cls_token": get("cls_token", 1, 1, dim),
+        "reg_token": get("reg_token", 1, None, dim),
+        "pos_embed": get("pos_embed", 1, None, dim),
+        "patch_embed": {"kernel": get("patch_embed.proj.weight", dim, 3, None, None)
+                        .transpose(2, 3, 1, 0),
+                        "bias": get("patch_embed.proj.bias", dim)},
+        "norm": ln("norm"),
+    }
+    get("blocks.0.norm1.weight", dim)  # at least one block
+    for i in range(_count(sd, "blocks.{}.norm1.weight")):
+        b = f"blocks.{i}"
+        fc1 = lin(f"{b}.mlp.fc1", None, dim)
+        hidden = fc1["kernel"].shape[1]
+        p[f"block{i}"] = {"norm1": ln(f"{b}.norm1"), "norm2": ln(f"{b}.norm2"),
+                          "qkv": lin(f"{b}.attn.qkv", 3 * dim, dim),
+                          "proj": lin(f"{b}.attn.proj", dim, dim),
+                          "ls1": {"gamma": get(f"{b}.ls1.gamma", dim)},
+                          "ls2": {"gamma": get(f"{b}.ls2.gamma", dim)},
+                          "fc1": fc1, "fc2": lin(f"{b}.mlp.fc2", dim, hidden // 2)}
+    return {"params": p}
+
+
 def convert_inception_state_dict(state_dict: Mapping[str, Any]) -> dict:
     """torchvision ``inception_v3`` state dict -> flax-layout ``{'params',
     'batch_stats'}`` of ``models/inception.InceptionV3``, whose module names
@@ -508,11 +563,13 @@ def convert_backbone_state_dict(state_dict: Mapping[str, Any], backbone_name: st
     'batch_stats'}``, converted by backbone (JAX ``cli/train.py``
     ``_load_backbone_variables``): ResNet names for 'retccl', 'resnet50' and
     'resnet18', torchvision's EfficientNet-B0 for 'efficientnet', DINO/timm
-    for 'vit'/'dino', torchvision's Inception-v3 for 'inception'."""
+    for 'vit'/'dino', timm's with registers and LayerScale for 'uni2_h',
+    torchvision's Inception-v3 for 'inception'."""
     converters = {"retccl": convert_resnet_state_dict, "resnet50": convert_resnet_state_dict,
                   "resnet18": convert_resnet_state_dict,
                   "efficientnet": convert_efficientnet_state_dict,
                   "vit": convert_vit_state_dict, "dino": convert_vit_state_dict,
+                  "uni2_h": convert_timm_vit_state_dict,
                   "inception": convert_inception_state_dict}
     if backbone_name not in converters:
         raise ValueError(f"no torch converter for backbone {backbone_name!r}")
